@@ -47,11 +47,57 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    and the plain version served no call;
 8. the kernel inside the model: one b_pad 8 dispatch's prefill logits,
    with the kernel and with the plain version, within ``LOGIT_TOL``, and
-   equal first tokens wherever the top-2 margin exceeds it.
+   equal first tokens wherever the top-2 margin exceeds it;
+9. the preprocessing kernel against its plain version: 5 and 160 frames
+   of 405 x 720 (what ``io/video.py::resize_max_dim`` makes of 16:9
+   video) -> 224 in the fast (bf16) and exact (float32) modes, 224^2
+   (normalise only) and 120 x 160 -> 224, within ``ops/preprocess.py``'s
+   tolerances; the device's time per call (``graph_ms``, 20 calls replayed
+   from a CUDA graph: at these sizes CUDA events around one call mostly
+   time the host's launch) of the kernel, the plain version and a library
+   yardstick the port never calls
+   (``F.interpolate(bilinear, antialias=True)`` and the affine), the
+   CUDA-event median of a call of the kernel's wrapper, and of the uint8
+   upload;
+10. the short-attention kernel against its plain version at B in {5, 160}
+   frames x 12 heads x N 50 x hd 64, bf16; device times of both and of
+   ``F.scaled_dot_product_attention`` as the yardstick, and the wrapper's
+   call time;
+11. the vision path (``backend.vlm: tpu``) at full width:
+   ``ViTConfig.b32()`` and ``CaptionerConfig.base()`` with seed weights
+   written as a JAX-format npz and loaded through ``vlm.checkpoint_path``
+   (``preprocess: device``, ``fast_resize: true``, 256 new bytes).  The
+   card's machine has no cv2, so the frame seam is replaced: in
+   ``vidgraph_tpu_torch.pipeline.vlm_extractor``'s namespace only,
+   ``iter_chunk_frames`` and ``count_chunks`` become a numpy source of 6
+   chunks of 5 RGB uint8 frames at 405 x 720, drawn as
+   ``io/video.py::write_synthetic_video`` draws them (a background of 30,
+   one coloured moving square per scene).  Everything from
+   ``VLMExtractor.process_video`` on is the real path.  It runs twice, with
+   the default ``attn_impl='einsum'`` (through ``make_vlm_client``) and
+   with ``'fused'``, each between a reset and a read of the launch counts:
+   the preprocessing kernel at least once per chunk, the short-attention
+   kernel 12 times per chunk in fused mode and never in einsum mode, the
+   flash kernel 8 times per chunk, and no plain version.  After the reads:
+   the two modes' embeddings agree (cosine >= 0.999); one chunk with every
+   kernel and with every plain version (``preprocess_ref``, the einsum
+   tower and the plain prefill) gives embeddings with cosine >= 0.999 and
+   first-token logits within ``VISION_LOGIT_TOL``, and the logits of a
+   planted fault (the short-attention kernel without its ``1/sqrt(hd)``
+   scale) are read beside them; ``kg`` -> ``batch-retrieve`` run on the
+   written ``vlm_output.json`` as subprocesses, and the ViT and
+   ``generate`` are timed.
 
 The last three lines: the kernels' JSON record, the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Without a
-CUDA card, or outside a checkout, it exits nonzero and prints no result.
+limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Each
+kernel's entry carries its launches on the main path, its max |error|
+against its plain version, the times of the kernel, the plain version and
+a library call (``library_ms``, or null; CUDA-event medians, and for the
+two vision kernels the device's time per call from a CUDA graph of 20
+calls, with ``call_ms`` the CUDA-event median of a call of the wrapper),
+and ``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and
+its operations over the card's peak for their type (989 TFLOP/s bf16, 67
+TFLOP/s float32).  Without a CUDA card, or outside a checkout, it exits nonzero and prints no result.
 ``tiktoken`` is kept out of every phase: its encoder would be fetched over
 the network; without it the token splitter uses its calibrated estimator.
 
@@ -76,6 +122,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
@@ -83,6 +130,15 @@ STORE_ROWS, STORE_COUNT, DIM = 200_000, 199_937, 512
 # phase 8: bf16 prefill logits with and without the kernel (8 layers of
 # one-ulp differences in the attention output; logits of about unit scale)
 LOGIT_TOL = 0.05
+# phase 11: first-token logits with every kernel and with every plain
+# version.  On an H100 80GB HBM3 (700 W) the two sides' embeddings agreed
+# bit for bit and the logits (max |logit| 1.45) differed by 0.0078, the
+# flash prefill's share; the planted fault (short attention without its
+# 1/sqrt(hd) scale) moved them by 0.85.  The limit sits between the two,
+# and the run fails if the planted fault does not exceed it.
+VISION_LOGIT_TOL = 0.05
+# H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 _TIKTOKEN_BLOCK = ('raise ImportError("tiktoken is kept out of this run: its '
                    'encoder would be fetched over the network")\n')
 
@@ -164,10 +220,56 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
             lambda: tc.cosine_scores_ref(q, store, count=STORE_COUNT)),
     }
     stages = time_topk_stages(tc, queries[:16], store)
+    past = torch.arange(STORE_ROWS, device="cuda") >= STORE_COUNT
+    library = {
+        "topk_b1_k5": cuda_ms(lambda: library_topk(q[:1], store, past, 5)),
+        "topk_b16_k5": cuda_ms(lambda: library_topk(q, store, past, 5)),
+        "score_topk_b16_k5": cuda_ms(
+            lambda: library_tile_topk(tc, q, store, past, 5)),
+        "merge_b16_k5": cuda_ms(lambda: torch.topk(
+            stages["partials"][0].view(16, -1), 5)),
+        "dense_b16": cuda_ms(lambda: library_scores(q, store, past)),
+    }
+    pv, pi = stages.pop("partials")
+    partial_bytes = pv.numel() * 4 + pi.numel() * 4
     log(f"phase 2 times on {card} (median of 20, ms) at 200,000 x 512 f32:",
-        json.dumps(times), json.dumps(stages))
+        json.dumps(times), json.dumps(stages), "library:",
+        json.dumps(library))
     return {"topk_err": topk_err, "score_err": score_err, "times": times,
-            "stages": stages}
+            "stages": stages, "library": library,
+            "partial_bytes": partial_bytes}
+
+
+def library_scores(q, store, past):
+    """The library yardstick of the dense mode: ``F.normalize`` and one
+    matrix product, the rows ``past`` the count masked."""
+    scores = F.normalize(q, dim=-1) @ store.T
+    return scores.masked_fill_(past, -1e30)
+
+
+def library_topk(q, store, past, k):
+    """The library yardstick of the top-k: ``torch.topk`` over the
+    masked cosine scores."""
+    return torch.topk(library_scores(q, store, past), k)
+
+
+def library_tile_topk(tc, q, store, past, k):
+    """The yardstick of the score kernel's top-k mode: the masked
+    scores, padded to whole tiles, and ``torch.topk`` within each tile."""
+    tile = tc._build.library().cosine_tile_rows()
+    n = store.shape[0]
+    pad = -n % tile
+    scores = F.pad(library_scores(q, store, past), (0, pad),
+                   value=float("-inf"))
+    return torch.topk(scores.view(q.shape[0], -1, tile), k, dim=-1)
+
+
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over
+    the memory rate and ``ops`` over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def time_topk_stages(tc, q, store, k: int = 5) -> dict:
@@ -190,6 +292,7 @@ def time_topk_stages(tc, q, store, k: int = 5) -> dict:
     merge_err = float((vals - mv).abs().max())
     assert merge_err == 0 and torch.equal(idx, mi), "merge disagrees"
     return {
+        "partials": (pv, pi),
         "score_topk_b16_k5": {
             "kernel_ms": cuda_ms(
                 lambda: tc.topk_partials(q, store, k, STORE_COUNT)),
@@ -454,6 +557,8 @@ def phase_flash(seed: int, card: str) -> dict:
                 lambda: fa.flash_attention(q, k, v, 8))
             row["plain_ms"] = cuda_ms(
                 lambda: fa.attention_ref(q, k, v, 8), reps=5 if b > 8 else 20)
+            row.update(library_sdpa(q, k, v, fa.prefix_causal_mask(
+                t, 8, q.device)))
         rows[f"b{b}_T{t}"] = row
         del q, k, v
         torch.cuda.empty_cache()
@@ -461,6 +566,46 @@ def phase_flash(seed: int, card: str) -> dict:
         f"of the plain version; times on {card} (median, ms), 8 heads x 64, "
         f"bf16, nv 8: {json.dumps(rows)}")
     return rows
+
+
+def device_kernels(fn) -> list:
+    """The names of the device kernels that ``fn()`` runs (three calls
+    traced): which backend served a library call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:80] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def library_sdpa(q, k, v, mask) -> dict:
+    """``F.scaled_dot_product_attention`` on [B, T, h, hd] inputs (as
+    [B, h, T, hd] views) with a boolean mask: its median time, the
+    backends that accept the call, and the device kernels that PyTorch's
+    default choice ran."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vidgraph_tpu_torch.core.profiling import cuda_ms
+
+    qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
+    accepted = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            torch.cuda.synchronize()
+            accepted.append(backend.name)
+        except RuntimeError:
+            pass
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    return {"library_ms": cuda_ms(sdpa, reps=10),
+            "library_backends": accepted,
+            "library_kernels": device_kernels(sdpa)}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -686,6 +831,470 @@ def phase_prefill_logits(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+PRE_SHAPES = [(5, 405, 720, True), (5, 405, 720, False),
+              (160, 405, 720, True), (160, 405, 720, False),
+              (5, 224, 224, True), (5, 120, 160, True)]
+
+
+def library_resize(x: torch.Tensor, size: int) -> torch.Tensor:
+    """The preprocessing's library yardstick, never called by the port:
+    ``F.interpolate(bilinear, antialias=True)`` and the CLIP affine."""
+    from vidgraph_tpu_torch.ops.preprocess import _mean_std_255
+
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(size, size),
+                      mode="bilinear", antialias=True, align_corners=False)
+    mean, std = _mean_std_255(x.device)
+    return (y.permute(0, 2, 3, 1) - mean) / std
+
+
+def phase_preprocess(seed: int, card: str) -> dict:
+    """Kernel A against its plain version at the serving shapes, then
+    medians of the kernel, the plain version, the library yardstick and
+    the upload of the uint8 frames from (pageable) host memory."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.ops import preprocess as pre
+
+    rng = np.random.default_rng(seed + 3)
+    rows = {}
+    for b, h, w, fast in PRE_SHAPES:
+        host = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+        x = torch.from_numpy(host).cuda()
+        got = pre.preprocess_frames(x, 224, fast)
+        torch.cuda.synchronize()
+        ref = pre.preprocess_ref(x, 224, fast)
+        tol = pre.TOL_FAST if ref.dtype == torch.bfloat16 else pre.TOL_F32
+        err = float((got.float() - ref.float()).abs().max())
+        assert got.dtype == ref.dtype and got.shape == ref.shape, got.shape
+        assert bool(torch.isfinite(got).all()) and err <= tol, \
+            f"preprocess {b}x{h}x{w} fast={fast}: max |err| {err} > {tol}"
+        lib_err = float((library_resize(x, 224)
+                         - pre.preprocess_ref(x, 224, False)).abs().max())
+        out_bytes = b * 224 * 224 * 3 * got.element_size()
+
+        def kernel():
+            return pre.preprocess_frames(x, 224, fast)
+        rows[f"b{b}_{h}x{w}_{'fast' if fast else 'exact'}"] = {
+            "max_abs_err": err, "tol": tol,
+            "kernel_ms": graph_ms(kernel),
+            "plain_ms": graph_ms(lambda: pre.preprocess_ref(x, 224, fast)),
+            "library_ms": graph_ms(lambda: library_resize(x, 224)),
+            "call_ms": cuda_ms(kernel),
+            "library_max_abs_diff_vs_exact": lib_err,
+            "upload_ms": cuda_ms(lambda: torch.from_numpy(host).cuda()),
+            **bound(host.nbytes + out_bytes, 0.0, F32_FLOPS)}
+        del x, got, ref
+    log(f"phase 9: preprocessing kernel within its tolerances of the plain "
+        f"version; times on {card} (ms; device time per call, 20 calls "
+        f"replayed from a CUDA graph; call_ms and upload_ms CUDA-event "
+        f"medians): {json.dumps(rows)}")
+    return rows
+
+
+# ----------------------------------------------------------------- phase 10
+def phase_short_attention(seed: int, card: str) -> dict:
+    """Kernel B against its plain version at the ViT's shapes, then
+    medians of the kernel, the plain version and SDPA."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    rng = np.random.default_rng(seed + 4)
+    rows = {}
+    for b in (5, 160):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, 12, 50, 64), dtype=np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(3))
+        got = sa.fused_short_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = sa.short_attention_ref(q, k, v).float()
+        err = (got.float() - ref).abs()
+        excess = float((err - sa.TOL_ABS - sa.TOL_REL * ref.abs()).max())
+        assert bool(torch.isfinite(got).all()) and excess <= 0, \
+            f"short attention B={b}: max |err| {float(err.max())}"
+
+        def kernel():
+            return sa.fused_short_attention(q, k, v)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v)
+        rows[f"b{b}"] = {
+            "max_abs_err": float(err.max()),
+            "kernel_ms": graph_ms(kernel),
+            "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
+            "library_ms": graph_ms(sdpa),
+            "library_kernels": device_kernels(sdpa),
+            "call_ms": cuda_ms(kernel),
+            **bound(4 * q.numel() * 2, 4.0 * b * 12 * 50 * 50 * 64,
+                    BF16_FLOPS)}
+    log(f"phase 10: short-attention kernel within {sa.TOL_ABS} + "
+        f"{sa.TOL_REL} x |plain|; times on {card} (ms; device time per call, 20 "
+        f"calls replayed from a CUDA graph; call_ms a CUDA-event median), 12 heads x N 50 x hd "
+        f"64, bf16: {json.dumps(rows)}")
+    return rows
+
+
+# ----------------------------------------------------------------- phase 11
+VISION_CHUNKS, VISION_FRAMES, VISION_HW = 6, 5, (405, 720)
+_SCENES = ["red", "green", "blue", "yellow", "magenta", "cyan"]
+
+
+def synthetic_chunks(n_chunks: int, frames_per_chunk: int,
+                     chunk_seconds: float, fps: int = 10):
+    """(chunk_idx, time label, [RGB uint8 frames]) as ``iter_chunk_frames``
+    yields them, for a video that ``write_synthetic_video`` would write
+    with one scene a chunk: a background of 30, a square of the scene's
+    colour moving along a sine, at 405 x 720."""
+    from vidgraph_tpu_torch.io.video import _COLORS, format_chunk_time
+
+    h, w = VISION_HW
+    side = min(h, w) // 2
+    offsets = np.linspace(0, int(fps * chunk_seconds) - 1,
+                          frames_per_chunk).astype(int)
+    for idx in range(n_chunks):
+        rgb = _COLORS[_SCENES[idx % len(_SCENES)]]
+        frames = []
+        for i in offsets:
+            frame = np.full((h, w, 3), 30, np.uint8)
+            x = int((w - side) * (0.5 + 0.4 * np.sin(i / 5.0)))
+            y = (h - side) // 2
+            frame[y:y + side, x:x + side] = rgb
+            frames.append(frame)
+        yield idx, format_chunk_time(idx, chunk_seconds), frames
+
+
+def vision_counts() -> dict:
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    return {"preprocess": pre.LAUNCHES["preprocess"],
+            "short_attention": sa.LAUNCHES["short_attention"],
+            "flash": fa.LAUNCHES["flash_fwd"],
+            "plain": pre.REF_CALLS + sa.REF_CALLS + fa.REF_CALLS}
+
+
+def reset_vision_counts() -> None:
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    for mod in (pre, sa, fa):
+        mod.reset_counts()
+
+
+def extract(cfg, client, out: Path) -> dict:
+    """``VLMExtractor.process_video`` between a reset and a read of the
+    launch counts; returns the counts, the wall time and the output."""
+    from vidgraph_tpu_torch.pipeline.vlm_extractor import VLMExtractor
+
+    reset_vision_counts()
+    t0 = time.perf_counter()
+    asyncio.run(VLMExtractor(cfg, vlm_client=client).process_video(
+        "synthetic_405x720.mp4", str(out)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = vision_counts()
+    data = json.loads(out.read_text())
+    assert set(data) == {"metadata", "results"}, set(data)
+    assert set(data["metadata"]) == {"run_id", "video_path", "total_chunks",
+                                     "config"}, data["metadata"]
+    results = data["results"]
+    assert data["metadata"]["total_chunks"] == len(results) == VISION_CHUNKS
+    for i, r in enumerate(results):
+        assert set(r) == {"time", "content", "chunk_idx", "processing_time"}
+        assert r["chunk_idx"] == i and isinstance(r["content"], str)
+    return {"counts": counts, "wall_s": wall, "results": results}
+
+
+def vision_cli(vlm_output: Path, tmp: Path) -> dict:
+    """``kg`` -> ``batch-retrieve`` on the written vlm output, as
+    subprocesses with ``config/high_recall_config.yaml``."""
+    (tmp / "block").mkdir(exist_ok=True)
+    (tmp / "block" / "tiktoken.py").write_text(_TIKTOKEN_BLOCK)
+    cfg = tmp / "recall.yaml"
+    cfg.write_text((ROOT / "config/high_recall_config.yaml").read_text()
+                   + "\nacs:\n  backend: networkx\n")
+    (tmp / "queries.json").write_text(json.dumps([
+        {"query": "What color is the square?", "groundtruth": "red"},
+        {"query": "What moves in the frames?", "groundtruth": "a square"}]))
+    env = {**os.environ, "VIDGRAPH_TORCH_DEVICE": "cuda",
+           "PYTHONPATH": os.pathsep.join(
+               [str(tmp / "block"), str(ROOT),
+                os.environ.get("PYTHONPATH", "")])}
+
+    def cli(*args) -> str:
+        res = subprocess.run(
+            [sys.executable, "-m", "vidgraph_tpu_torch.cli.main", *args],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, \
+            f"{args[0]} exited {res.returncode}:\n{res.stderr[-3000:]}"
+        return res.stdout
+
+    uuid = cli("kg", "--config", str(cfg), "--vlm-output",
+               str(vlm_output)).strip().rsplit("UUID: ", 1)[1]
+    cli("batch-retrieve", "--config", str(cfg), "--graph-uuid", uuid,
+        "--input", "queries.json", "--output", "results.json")
+    results = json.loads((tmp / "results.json").read_text())
+    assert len(results) == 2, results
+    snap = json.loads((tmp / "graph_store" / f"{uuid}.json").read_text())
+    return {"uuid": uuid, "chunks": len(snap.get("chunks", {})),
+            "entities": len(snap.get("entities", {}))}
+
+
+def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(F.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+def planted_fault_logits(client, stack, first_logits) -> dict:
+    """First-token logits of the fused client with a planted fault: the
+    short-attention kernel run without its ``1/sqrt(hd)`` scale (q handed
+    over times ``sqrt(hd)``).  They show how far a wrong kernel moves what
+    ``VISION_LOGIT_TOL`` holds."""
+    from vidgraph_tpu_torch.models import vit
+
+    fused = vit.fused_short_attention
+
+    def unscaled(q, k, v):
+        return fused((q * q.shape[-1] ** 0.5).contiguous(), k.contiguous(),
+                     v.contiguous())
+    vit.fused_short_attention = unscaled
+    try:
+        emb = client.embed_frames(stack)
+    finally:
+        vit.fused_short_attention = fused
+    sound = client.embed_frames(stack)
+    return {"logits": first_logits(emb, True),
+            "cosine": cosine_rows(emb, sound)}
+
+
+def phase_vision(seed: int, card: str) -> dict:
+    from vidgraph_tpu_torch.core.config import PipelineConfig
+    from vidgraph_tpu_torch.core.profiling import cuda_ms
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     generate, init_params,
+                                                     vision_prefill)
+    from vidgraph_tpu_torch.models.checkpoint import save_params
+    from vidgraph_tpu_torch.models.vit import (ViTConfig, init_vision_tower,
+                                               param_tree)
+    from vidgraph_tpu_torch.ops.preprocess import (preprocess_frames,
+                                                   preprocess_ref)
+    from vidgraph_tpu_torch.pipeline import vlm_extractor
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    vlm_extractor.iter_chunk_frames = (
+        lambda path, secs, per_chunk, *a: synthetic_chunks(
+            VISION_CHUNKS, per_chunk, secs))
+    vlm_extractor.count_chunks = lambda path, secs: VISION_CHUNKS
+    gen = torch.Generator().manual_seed(seed)
+    tower = init_vision_tower(ViTConfig.b32(), gen)
+    cap = init_params(CaptionerConfig.base(), gen)
+    n_layers_vit, n_layers_cap = tower.cfg.layers, CaptionerConfig.base().layers
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            ckpt = save_params({"vit": param_tree(tower), "cap": cap},
+                               str(tmp / "vlm.npz"))
+            del tower, cap
+            cfg = PipelineConfig()
+            cfg.backend.vlm = "tpu"
+            cfg.vlm.checkpoint_path = ckpt
+            cfg.vlm.preprocess = "device"
+            cfg.vlm.fast_resize = True
+            einsum = extract(cfg, None, tmp / "vlm_output.json")
+            fused_client = TPUVLMClient(
+                vit_cfg=ViTConfig(attn_impl="fused"), checkpoint=ckpt,
+                preprocess="device", fast_resize=True)
+            fused = extract(cfg, fused_client, tmp / "vlm_output_fused.json")
+            n = VISION_CHUNKS
+            for name, run, attn in (("einsum", einsum, 0),
+                                    ("fused", fused, n_layers_vit * n)):
+                c = run["counts"]
+                log(f"phase 11: {name}: launches {json.dumps(c)} for {n} "
+                    f"chunks, wall {run['wall_s']:.3f} s")
+                assert c["preprocess"] >= n, f"{name}: {c}"
+                assert c["short_attention"] == attn, f"{name}: {c}"
+                assert c["flash"] == n_layers_cap * n, f"{name}: {c}"
+                assert c["plain"] == 0, f"{name}: a plain version served {c}"
+            same = sum(a["content"] == b["content"] for a, b in
+                       zip(einsum["results"], fused["results"]))
+
+            client = fused_client
+            chunk = next(synthetic_chunks(1, VISION_FRAMES, 5.0))[2]
+            stack = np.stack(chunk)
+            einsum_tower = type(client.vit)(ViTConfig())
+            einsum_tower.load_state_dict(client.vit.state_dict())
+            einsum_tower = einsum_tower.cuda().eval()
+
+            def first_logits(emb, flash):
+                vis = client.vision_prefixes([chunk], emb)
+                return vision_prefill(client._serve_params, client.cap_cfg,
+                                      vis, client.max_new, flash=flash)[0]
+            with torch.no_grad():
+                xin = torch.from_numpy(stack).cuda()
+                x = preprocess_frames(xin, 224, fast=True)
+                emb_f, emb_e = client.vit(x), einsum_tower(x)
+                cos_modes = cosine_rows(emb_f, emb_e)
+                assert cos_modes >= 0.999, f"einsum vs fused: {cos_modes}"
+                # every kernel (preprocessing, short attention, flash)
+                # against every plain version: preprocess_ref, the einsum
+                # attention (short_attention_ref's arithmetic) and the
+                # plain prefill
+                emb_k = client.embed_frames(stack)
+                emb_p = einsum_tower(preprocess_ref(xin, 224, fast=True))
+                emb_err = float((emb_k - emb_p).abs().max())
+                cos_plain = cosine_rows(emb_k, emb_p)
+                assert cos_plain >= 0.999, f"kernels vs plain: {cos_plain}"
+                lk, lp = first_logits(emb_k, True), first_logits(emb_p, False)
+                fault = planted_fault_logits(client, stack, first_logits)
+            torch.cuda.synchronize()
+            err = float((lk - lp).abs().max())
+            assert bool(torch.isfinite(lk).all()) and err <= VISION_LOGIT_TOL, \
+                f"first-token logits differ by {err} > {VISION_LOGIT_TOL}"
+            fault_err = float((fault["logits"] - lp).abs().max())
+            assert fault_err > VISION_LOGIT_TOL, \
+                f"a planted fault moved the logits by {fault_err} only"
+            top2 = torch.topk(lp, 2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > VISION_LOGIT_TOL
+            first_same = lk.argmax(-1) == lp.argmax(-1)
+            assert bool(first_same[decided].all()), "a first token differs"
+
+            times = {}
+            frames160 = np.concatenate([stack] * 32)
+            for nf, frames in ((5, stack), (160, frames160)):
+                xin = torch.from_numpy(frames).cuda()
+                xp = preprocess_frames(xin, 224, fast=True)
+                with torch.no_grad():
+                    times[f"vit_fused_{nf}_ms"] = cuda_ms(
+                        lambda: client.vit(xp), reps=10)
+                    times[f"vit_einsum_{nf}_ms"] = cuda_ms(
+                        lambda: einsum_tower(xp), reps=10)
+                times[f"upload_{nf}_ms"] = cuda_ms(
+                    lambda: torch.from_numpy(frames).cuda())
+                times[f"preprocess_{nf}_ms"] = cuda_ms(
+                    lambda: preprocess_frames(xin, 224, fast=True))
+            chunks = [c for _, _, c in synthetic_chunks(
+                VISION_CHUNKS, VISION_FRAMES, 5.0)]
+            vis = client.vision_prefixes(
+                chunks, client.embed_frames(np.concatenate(chunks)))
+            gen_s = {}
+            for b in (1, VISION_CHUNKS):
+                generate(client._serve_params, client.cap_cfg, vis[:b],
+                         client.max_new)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = generate(client._serve_params, client.cap_cfg,
+                                vis[:b], client.max_new)
+                torch.cuda.synchronize()
+                gen_s[f"b{b}"] = time.perf_counter() - t0
+                assert toks.shape == (b, client.max_new)
+            times["generate_s"] = gen_s
+            cli = vision_cli(tmp / "vlm_output.json", tmp)
+        finally:
+            os.chdir(old_cwd)
+    per_chunk = {name: statistics.mean(r["processing_time"]
+                                       for r in run["results"])
+                 for name, run in (("einsum", einsum), ("fused", fused))}
+    out = {"counts": {"einsum": einsum["counts"], "fused": fused["counts"]},
+           "s_per_chunk": per_chunk,
+           "wall_s": {"einsum": einsum["wall_s"], "fused": fused["wall_s"]},
+           "captions_equal_across_modes": same,
+           "embedding_cosine_einsum_vs_fused": cos_modes,
+           "embeddings_kernels_vs_plain": {"min_cosine": cos_plain,
+                                           "max_abs_err": emb_err},
+           "planted_fault": {"fault": "short attention without 1/sqrt(hd)",
+                             "embedding_min_cosine": fault["cosine"],
+                             "first_token_logits_max_abs_diff": fault_err},
+           "first_token_logits": {
+               "max_abs_err": err, "tol": VISION_LOGIT_TOL,
+               "first_tokens_equal": bool(first_same.all()),
+               "decided": bool(decided.all()),
+               "logit_scale": float(lp.abs().max())},
+           "times": times, "cli": cli}
+    log(f"phase 11: the vision path at ViT-B/32 + captioner base width on "
+        f"{card}: {json.dumps(out)}")
+    return out
+
+
+def kernel_record(kern, main_path, flash, chat, pre, short,
+                  vision) -> dict:
+    """The ``kernels`` record: every kernel of the port, its launches on
+    the main paths, its error against its plain version, its times and
+    its bound at the shape it was timed at."""
+    src = "vidgraph_tpu_torch/csrc/topk_cosine.cu"
+    replaces = "vidgraph_tpu/ops/topk_cosine.py:39"
+    launches = main_path["launches"]
+    stages, lib = kern["stages"], kern["library"]
+    dense = kern["times"]["dense_b16"]
+    store_bytes = STORE_ROWS * DIM * 4
+    score_ops = 2.0 * 16 * STORE_ROWS * DIM
+    t, nv, b32 = 2056, 8, flash["b32_T2056"]
+    pairs = sum(min(max(r, nv - 1), t - 1) + 1 for r in range(t))
+    vision_counts = [vision["counts"][m] for m in ("einsum", "fused")]
+    pre5 = pre["b5_405x720_fast"]
+    short5 = short["b5"]
+    return {"kernels": [
+        {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
+         "source": src, "replaces": replaces,
+         "launches": launches["score_topk"],
+         "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
+         "ms": stages["score_topk_b16_k5"]["kernel_ms"],
+         "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
+         "library_ms": lib["score_topk_b16_k5"],
+         **bound(store_bytes + kern["partial_bytes"], score_ops, F32_FLOPS),
+         "timed": "per-tile top-5 partials, B=16, 200000x512 f32"},
+        {"name": "cosine_topk_merge", "route": "cuda", "source": src,
+         "replaces": replaces, "launches": launches["merge"],
+         "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
+         "ms": stages["merge_b16_k5"]["kernel_ms"],
+         "plain_ms": stages["merge_b16_k5"]["plain_ms"],
+         "library_ms": lib["merge_b16_k5"],
+         **bound(kern["partial_bytes"] + 16 * 5 * 8, 0.0, F32_FLOPS),
+         "timed": "merge of the tiles' top-5 partials, B=16"},
+        {"name": "cosine_score_tile (dense mode)", "route": "cuda",
+         "source": src, "replaces": replaces,
+         "launches": launches["score_dense"],
+         "max_abs_err": kern["score_err"], "ms": dense["kernel_ms"],
+         "plain_ms": dense["plain_ms"], "library_ms": lib["dense_b16"],
+         **bound(store_bytes + 16 * STORE_ROWS * 4, score_ops, F32_FLOPS),
+         "timed": "dense scores, B=16, 200000x512 f32"},
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "vidgraph_tpu/models/captioner.py:165",
+         "launches": (chat["kg"]["flash"] + chat["benchmark"]["flash"]
+                      + sum(c["flash"] for c in vision_counts)),
+         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+         "ms": b32["kernel_ms"], "plain_ms": b32["plain_ms"],
+         "library_ms": b32["library_ms"],
+         "library_backends": b32["library_backends"],
+         "library_kernels": b32["library_kernels"],
+         **bound(4 * 32 * t * 8 * 64 * 2, 4.0 * 32 * 8 * 64 * pairs,
+                 BF16_FLOPS),
+         "timed": "b=32, T=2056, 8 heads x 64, bf16, nv=8"},
+        {"name": "preprocess_frames", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/preprocess.cu",
+         "replaces": "vidgraph_tpu/ops/preprocess.py:30",
+         "launches": sum(c["preprocess"] for c in vision_counts),
+         "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
+         "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
+         "library_ms": pre5["library_ms"], "call_ms": pre5["call_ms"],
+         "bound_ms": pre5["bound_ms"], "bound_by": pre5["bound_by"],
+         "timed": "5 frames 405x720 uint8 -> 224 bf16 (fast)"},
+        {"name": "short_attention", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/short_attention.cu",
+         "replaces": "vidgraph_tpu/ops/short_attention.py:83",
+         "launches": vision["counts"]["fused"]["short_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in short.values()),
+         "ms": short5["kernel_ms"], "plain_ms": short5["plain_ms"],
+         "library_ms": short5["library_ms"],
+         "library_kernels": short5["library_kernels"],
+         "call_ms": short5["call_ms"],
+         "bound_ms": short5["bound_ms"], "bound_by": short5["bound_by"],
+         "timed": "B=5 x 12 heads, N=50, hd=64, bf16"},
+    ]}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cli"]:
         return cli_with_counts(sys.argv[2], sys.argv[3:])
@@ -721,45 +1330,20 @@ def main() -> int:
     flash = phase_flash(args.seed, card)
     chat = phase_chat_lm(args.seed)
     logits = phase_prefill_logits(args.seed)
+    log(f"phases 1-8 done at {time.perf_counter() - t0:.1f} s")
+    pre = phase_preprocess(args.seed, card)
+    short = phase_short_attention(args.seed, card)
+    vision = phase_vision(args.seed, card)
+    log(f"phases 1-11 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
-
-    src = "vidgraph_tpu_torch/csrc/topk_cosine.cu"
-    replaces = "vidgraph_tpu/ops/topk_cosine.py:39"
-    launches = main_path["launches"]
-    stages = kern["stages"]
-    dense = kern["times"]["dense_b16"]
-    record = {"kernels": [
-        {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
-         "source": src, "replaces": replaces,
-         "launches": launches["score_topk"],
-         "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
-         "ms": stages["score_topk_b16_k5"]["kernel_ms"],
-         "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
-         "timed": "per-tile top-5 partials, B=16, 200000x512 f32"},
-        {"name": "cosine_topk_merge", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["merge"],
-         "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
-         "ms": stages["merge_b16_k5"]["kernel_ms"],
-         "plain_ms": stages["merge_b16_k5"]["plain_ms"],
-         "timed": "merge of 782 tiles' top-5 partials, B=16"},
-        {"name": "cosine_score_tile (dense mode)", "route": "cuda",
-         "source": src, "replaces": replaces,
-         "launches": launches["score_dense"],
-         "max_abs_err": kern["score_err"], "ms": dense["kernel_ms"],
-         "plain_ms": dense["plain_ms"],
-         "timed": "dense scores, B=16, 200000x512 f32"},
-        {"name": "flash_attn_fwd", "route": "cuda",
-         "source": "vidgraph_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "vidgraph_tpu/models/captioner.py:165",
-         "launches": chat["kg"]["flash"] + chat["benchmark"]["flash"],
-         "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
-         "ms": flash["b32_T2056"]["kernel_ms"],
-         "plain_ms": flash["b32_T2056"]["plain_ms"],
-         "timed": "b=32, T=2056, 8 heads x 64, bf16, nv=8"},
-    ], "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
+    record = kernel_record(kern, main_path, flash, chat, pre, short, vision)
+    record.update({
+        "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
         "retrieval_p95_ms": main_path["p95_ms"],
-        "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits}
+        "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits,
+        "preprocess_ms": pre, "short_attention_ms": short,
+        "vision": vision})
     print(json.dumps(record))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

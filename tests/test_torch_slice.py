@@ -264,12 +264,9 @@ def test_cli_kg_batch_retrieve_benchmark(tmp_path, capsys):
     assert bench["statistics"]["total_queries"] == 3
 
 
-@pytest.mark.parametrize("command", ["vlm", "graph", "stream", "serve",
-                                     "prune"])
+@pytest.mark.parametrize("command", ["stream", "serve", "prune"])
 def test_cli_commands_not_yet_ported_exit_nonzero(command, capsys):
-    args = {"vlm": ["--config", "c", "--video", "v", "--output", "o"],
-            "graph": ["--config", "c", "--video", "v", "--output", "o"],
-            "stream": ["--config", "c", "--videos", "v"],
+    args = {"stream": ["--config", "c", "--videos", "v"],
             "serve": ["--config", "c"],
             "prune": ["--input", "i", "--output", "o"]}[command]
     assert cli_main([command, *args]) == 2

@@ -1,9 +1,10 @@
 """CLI of the PyTorch port, run as ``python -m vidgraph_tpu_torch.cli.main``.
 
-The parser is ``vidgraph_tpu/cli/main.py``'s.  Ported: ``kg`` (with
-``--resume-uuid``), ``retrieve``, ``ask``, ``batch-retrieve``, ``export``,
-``import`` and ``benchmark``.  ``vlm``, ``graph``, ``stream``, ``serve`` and
-``prune`` exit with status 2 and name the ROADMAP slice that ports them.
+The parser is ``vidgraph_tpu/cli/main.py``'s.  Ported: ``vlm`` and its
+alias ``graph``, ``kg`` (with ``--resume-uuid``), ``retrieve``, ``ask``,
+``batch-retrieve``, ``export``, ``import`` and ``benchmark``.  ``stream``,
+``serve`` and ``prune`` exit with status 2 and name the ROADMAP slice that
+ports them.
 
 CLI — surface parity with the reference (reference:
 src/cli/main.py:187-289): subcommands ``vlm`` (plus ``graph`` alias — the
@@ -29,14 +30,21 @@ from ..core.logger import get_logger
 
 logger = get_logger("cli")
 
-NOT_PORTED = {"vlm": "slice 5, on-device vision",
-              "graph": "slice 5, on-device vision",
-              "stream": "slice 8, streams and serving",
+NOT_PORTED = {"stream": "slice 8, streams and serving",
               "serve": "slice 8, streams and serving",
               "prune": "the prune module, after vision"}
 
 
 # ----------------------------------------------------------------- runners
+async def run_vlm_extraction(config_path: str, video: str, output: str):
+    from ..pipeline.vlm_extractor import VLMExtractor
+
+    config = PipelineConfig.from_yaml(config_path)
+    extractor = VLMExtractor(config)
+    result = await extractor.process_video(video, output)
+    return output if result else None
+
+
 async def run_kg_construction(config_path: str, vlm_output: str,
                               retrieval_schedule: Optional[str] = None,
                               resume_uuid: Optional[str] = None):
@@ -258,7 +266,11 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"serves it: python -m vidgraph_tpu.cli.main {args.command}",
               file=sys.stderr)
         return 2
-    if args.command == "kg":
+    if args.command in ("vlm", "graph"):
+        result = asyncio.run(run_vlm_extraction(args.config, args.video,
+                                                args.output))
+        print(f"VLM extraction completed: {result}")
+    elif args.command == "kg":
         result = asyncio.run(run_kg_construction(args.config,
                                                  args.vlm_output,
                                                  args.retrieval_schedule,

@@ -12,13 +12,16 @@ gives the same embedder.  What crosses is
   under ``graph_store.persist_dir`` and the same export format v1.0, so a
   graph built by either is opened by the other as it is;
 * captioner (chat LM) parameters, with ``captioner_params_from_jax``, or
-  as a checkpoint in the JAX npz format (``models/checkpoint.py``).
+  as a checkpoint in the JAX npz format (``models/checkpoint.py``);
+* the vision tower's Flax tree, with ``vit_params_from_jax``, or inside
+  the VLM checkpoint ``{"vit": <flax tree>, "cap": <captioner tree>}``
+  that ``services/vlm_client.py::TPUVLMClient`` reads.
 
 Nothing here imports the JAX package: it takes the numpy state it writes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -53,7 +56,7 @@ def captioner_params_from_jax(tree: Any,
     params`` layout) whose leaves are numpy arrays: float32, or bfloat16
     as ``ml_dtypes.bfloat16`` or as uint16 bit patterns.  Values and
     dtypes are kept bit for bit."""
-    if isinstance(tree, dict):
+    if isinstance(tree, Mapping):
         return {k: captioner_params_from_jax(v, device)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -63,3 +66,14 @@ def captioner_params_from_jax(tree: Any,
     if bf16:
         arr = arr.view(np.uint16)
     return from_numpy(arr, bf16).to(device or torch.device("cpu"))
+
+
+def vit_params_from_jax(tree: Any, device: Optional[torch.device] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``VisionTower`` from the JAX
+    package's Flax tree ``{"params": {...}}`` with numpy leaves (Flax's
+    [in, out] kernels are the port's as they are).  Values and dtypes are
+    kept bit for bit: ``tower.load_state_dict(vit_params_from_jax(t))``."""
+    from .models.vit import state_dict_from_tree
+
+    return state_dict_from_tree(captioner_params_from_jax(tree, device))

@@ -5,7 +5,8 @@ a ``torch.profiler`` trace (CPU and CUDA activities) where the JAX package
 records a ``jax.profiler`` one, and ``span`` is the same wall-clock span,
 optionally annotated into the trace.  ``cuda_ms`` times a callable on the
 card with CUDA events: PyTorch returns before the card finishes, so a host
-clock without a synchronise would time the enqueue only.
+clock without a synchronise would time the enqueue only.  ``graph_ms``
+times the device's work alone, replaying the calls from a CUDA graph.
 """
 from __future__ import annotations
 
@@ -88,4 +89,38 @@ def cuda_ms(fn: Callable[[], object], reps: int = 20,
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn: Callable[[], object], reps: int = 20,
+             replays: int = 5) -> float:
+    """Device milliseconds per ``fn()``: ``reps`` calls captured into one
+    CUDA graph, each replay timed with CUDA events, the median of
+    ``replays`` over ``reps``.  Unlike ``cuda_ms`` of one call it leaves out
+    the host's time to launch the work, which exceeds a small kernel's.
+    ``fn`` must be capturable: no host synchronisation, no pageable
+    copies (tables it keeps are made by the warm-up calls)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms times on a CUDA card; none is "
+                           "available")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)

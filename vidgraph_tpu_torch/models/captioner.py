@@ -3,10 +3,10 @@
 Counterpart of ``vidgraph_tpu/models/captioner.py``, as plain functions over
 a parameter dict with the JAX tree's keys (``tok_emb``, ``pos_emb``,
 ``blocks/<i>/qkv_w`` ...), so that ``models/checkpoint.py`` reads and writes
-the JAX package's npz as it is.  Ported so far: the full-sequence
-``forward``, the prefill and the KV-cached greedy decode behind
-``generate_from_tokens`` (the chat LM, ``backend.llm: tpu``).  ``generate``
-(the vision-prefix caption decode) is ROADMAP slice 5, training slice 9.
+the JAX package's npz as it is.  Ported: the full-sequence ``forward``, the
+prefill and the KV-cached greedy decode behind ``generate_from_tokens``
+(the chat LM, ``backend.llm: tpu``) and ``generate`` (the vision-prefix
+caption decode, ``backend.vlm: tpu``).  Training is ROADMAP slice 9.
 
 Numerics follow the JAX package: the residual stream stays float32, layer
 norms run in float32, biases are cast to the compute dtype before they are
@@ -20,6 +20,9 @@ rounding:
 * The prefill's attention is ``ops/flash_attention.py``: with
   ``flash=True`` on the card the CUDA kernel, otherwise the plain version.
   The kernel takes any T, so the TPU's ``flash_pad_len`` padding is gone.
+  ``generate``'s prefill (the nv vision slots and BOS) takes it by
+  default, where the JAX package runs the einsum path; its mask is the
+  kernel's ``c <= max(r, nv - 1)``.
 * The KV caches are float32 tensors [B, h, maxT, hd] (head-major, so that
   the decode step's products batch over B x h without a copy), written in
   place.  They hold the compute-dtype K/V exactly, so the decode step's
@@ -44,7 +47,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from .quant8 import wdot
-from .tokenizer import EOS_ID, VOCAB_SIZE
+from .tokenizer import BOS_ID, EOS_ID, VOCAB_SIZE
 
 _DONE_CHECK = 16
 
@@ -60,6 +63,11 @@ class CaptionerConfig:
     max_len: int = 1024            # prefix + generated bytes
     dtype: Any = torch.bfloat16
     qmode: str = "a16"             # int8 dot mode when served quantized
+
+    @classmethod
+    def base(cls) -> "CaptionerConfig":
+        """The caption decoder of ``backend.vlm: tpu``."""
+        return cls()
 
     @classmethod
     def chat(cls) -> "CaptionerConfig":
@@ -266,7 +274,9 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
         if i == max_new - 1 or (i % _DONE_CHECK == _DONE_CHECK - 1
                                 and bool(done.all())):
             break
-        pos = start + i
+        # positions past max_len reuse the last embedding, as JAX's
+        # clamped gather does (generate does not check the budget)
+        pos = torch.clamp(start + i, max=cfg.max_len - 1)
         x = (params["tok_emb"][tok] + params["pos_emb"][pos])[:, None] \
             .float()
         masked[..., decode_base + i] = False
@@ -342,3 +352,35 @@ def generate_from_tokens(params: Dict, cfg: CaptionerConfig,
                         nv + prompt_len.long(), max_new,
                         decode_base=nv + t_pad,
                         grammar_trans=grammar_trans, gstate=gstate)
+
+
+def vision_prefill(params: Dict, cfg: CaptionerConfig,
+                   vision_emb: torch.Tensor, max_new: int,
+                   flash: bool = True):
+    """The prefill of ``generate``: the nv vision slots of ``vision_emb``
+    [B, nv, vision_dim] and BOS, with the prefix-bidirectional causal
+    mask.  Returns (the logits after BOS [B, vocab] float32, the caches
+    sized for ``max_new`` decode steps)."""
+    b = vision_emb.shape[0]
+    max_t = cfg.num_vision_tokens + 1 + max_new
+    bos = torch.full((b, 1), BOS_ID, dtype=torch.long,
+                     device=vision_emb.device)
+    x = _embed_inputs(params, cfg, vision_emb, bos)      # [B, nv+1, d]
+    x, caches = _prefill(params, cfg, x, max_t, flash=flash)
+    return _head_logits(params, cfg, x[:, -1:])[:, 0], caches
+
+
+@torch.no_grad()
+def generate(params: Dict, cfg: CaptionerConfig, vision_emb: torch.Tensor,
+             max_new: int = 256, flash: bool = True) -> torch.Tensor:
+    """Greedy caption decode from a vision prefix [B, nv, vision_dim].
+    Returns token ids [B, max_new] int32, EOS after a row's EOS (the
+    JAX package's ``generate``).  ``flash=True`` takes the CUDA kernel
+    for the prefill on the card."""
+    b = vision_emb.shape[0]
+    t0 = cfg.num_vision_tokens + 1
+    logits, caches = vision_prefill(params, cfg, vision_emb, max_new, flash)
+    first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    start = torch.full((b,), t0, dtype=torch.long, device=vision_emb.device)
+    return _decode_loop(params, cfg, first_tok, caches, start, max_new,
+                        decode_base=t0)

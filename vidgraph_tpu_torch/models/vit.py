@@ -1,0 +1,227 @@
+"""Vision tower: the CLIP-style ViT, as ``torch.nn`` modules.
+
+Counterpart of ``vidgraph_tpu/models/vit.py`` (Flax).  The modules and
+parameters carry the Flax names (``block_0.attn.qkv.kernel``,
+``ln_post.scale``, ``cls``, ``pos``), and ``Dense`` keeps Flax's [in, out]
+kernel, so a Flax tree crosses by renaming alone (``param_tree``,
+``state_dict_from_tree``, ``convert.vit_params_from_jax``).
+
+Numerics follow the Flax modules with ``dtype`` the compute dtype and
+float32 parameters:
+* ``Dense``: input and kernel cast to the compute dtype, the product in
+  it (float32 accumulation, one rounding), then the bias added in it;
+* ``LayerNorm``: statistics in float32, eps 1e-6, the result cast to the
+  compute dtype (the captioner's ``_ln`` uses 1e-5);
+* the residual stream is in the compute dtype; GELU is the tanh form;
+* attention scores are float32 divided by ``sqrt(hd)``, the softmax
+  float32, the probabilities cast to the compute dtype, P.V summed in
+  float32;
+* the output is ``proj`` of the class token in float32, times
+  ``rsqrt(sum(x^2) + 1e-12)``.
+
+``attn_impl`` picks the attention: ``einsum`` (the reference path),
+``packed`` (head-pair packing) or ``fused`` (``ops/short_attention.py``:
+the CUDA kernel on the card).  An odd head count takes ``einsum``.  The
+products (patch embedding, qkv, proj, fc1, fc2) are ``torch.matmul``, as
+the JAX package leaves them to XLA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.preprocess import patchify
+from ..ops.short_attention import fused_short_attention, packed_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    image_size: int = 224
+    patch_size: int = 32
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    embed_dim: int = 512          # output projection dim
+    mlp_ratio: int = 4
+    dtype: Any = torch.bfloat16   # compute dtype
+    attn_impl: str = "einsum"     # einsum | packed | fused
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @classmethod
+    def b32(cls) -> "ViTConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "ViTConfig":
+        """Small config for CPU tests."""
+        return cls(image_size=64, patch_size=32, width=64, layers=2,
+                   heads=2, embed_dim=32, dtype=torch.float32)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense(dtype=...)``: kernel [in, out], bias [out]."""
+
+    def __init__(self, d_in: int, d_out: int, dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        return y + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(dtype=...)``: float32 statistics, eps 1e-6."""
+
+    def __init__(self, d: int, dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
+                            1e-6).to(self.dtype)
+
+
+class MHA(nn.Module):
+    def __init__(self, cfg: ViTConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.qkv = Dense(cfg.width, 3 * cfg.width, cfg.dtype)
+        self.proj = Dense(cfg.width, cfg.width, cfg.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        d = c.width
+        hd = d // c.heads
+        b, n, _ = x.shape
+        q, k, v = (z.reshape(b, n, c.heads, hd)
+                   for z in self.qkv(x).split(d, dim=-1))
+        impl = c.attn_impl if c.heads % 2 == 0 else "einsum"
+        if impl in ("packed", "fused"):
+            qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
+            if impl == "fused":
+                oh = fused_short_attention(qh, kh, vh)
+            else:
+                oh = packed_attention(qh, kh, vh)
+            out = oh.transpose(1, 2)
+        elif impl == "einsum":
+            att = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            att = att / math.sqrt(hd)
+            att = torch.softmax(att, dim=-1).to(c.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", att.float(), v.float())
+        else:
+            raise ValueError(f"attn_impl must be einsum|packed|fused, got "
+                             f"{c.attn_impl!r}")
+        return self.proj(out.reshape(b, n, d).to(c.dtype))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig) -> None:
+        super().__init__()
+        w = cfg.width
+        self.ln1 = LayerNorm(w, cfg.dtype)
+        self.attn = MHA(cfg)
+        self.ln2 = LayerNorm(w, cfg.dtype)
+        self.fc1 = Dense(w, w * cfg.mlp_ratio, cfg.dtype)
+        self.fc2 = Dense(w * cfg.mlp_ratio, w, cfg.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        h = F.gelu(self.fc1(self.ln2(x)), approximate="tanh")
+        return x + self.fc2(h)
+
+
+class VisionTower(nn.Module):
+    """images [B, H, W, 3] (normalised) -> embeddings [B, embed_dim]
+    float32, unit norm; or, with ``return_tokens``, every token's
+    projection [B, N + 1, embed_dim] in the compute dtype."""
+
+    def __init__(self, cfg: ViTConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.patch_embed = Dense(cfg.patch_size ** 2 * 3, w, cfg.dtype)
+        self.cls = nn.Parameter(torch.zeros(1, 1, w))
+        self.pos = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, w))
+        for i in range(cfg.layers):
+            self.add_module(f"block_{i}", Block(cfg))
+        self.ln_post = LayerNorm(w, cfg.dtype)
+        self.proj = Dense(w, cfg.embed_dim, cfg.dtype)
+
+    def forward(self, images: torch.Tensor,
+                return_tokens: bool = False) -> torch.Tensor:
+        c = self.cfg
+        x = self.patch_embed(patchify(images, c.patch_size).to(c.dtype))
+        b = x.shape[0]
+        cls = self.cls.to(c.dtype).expand(b, 1, c.width)
+        x = torch.cat([cls, x], dim=1) + self.pos.to(c.dtype)
+        for i in range(c.layers):
+            x = getattr(self, f"block_{i}")(x)
+        x = self.ln_post(x)
+        if return_tokens:
+            return self.proj(x)
+        out = self.proj(x[:, 0]).float()
+        return out * torch.rsqrt((out * out).sum(dim=-1, keepdim=True)
+                                 + 1e-12)
+
+
+def init_vision_tower(cfg: ViTConfig,
+                      generator: Optional[torch.Generator] = None,
+                      device: Optional[torch.device] = None) -> VisionTower:
+    """A tower with random float32 parameters drawn on the host from
+    ``generator`` (seed 0 when None), then moved to ``device``: kernels
+    N(0, 1/fan_in) (Flax's lecun_normal, untruncated), ``cls`` and ``pos``
+    N(0, 0.02), biases zero, layer-norm scales one.  Flax's ``PRNGKey``
+    draws other numbers; weights cross through ``convert.py`` or a
+    checkpoint."""
+    gen = generator or torch.Generator().manual_seed(0)
+    tower = VisionTower(cfg)
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if name.endswith("kernel"):
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        / math.sqrt(p.shape[0]))
+            elif name in ("cls", "pos"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return tower.to(device) if device is not None else tower
+
+
+def param_tree(tower: VisionTower) -> Dict[str, Any]:
+    """The tower's parameters as the Flax tree ``{"params": {...}}``
+    (nested dicts of tensors; the leaves are the parameters' data)."""
+    tree: Dict[str, Any] = {}
+    for name, p in tower.named_parameters():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach()
+    return {"params": tree}
+
+
+def state_dict_from_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A Flax tree ``{"params": {...}}`` (leaves as tensors) flattened to
+    the tower's ``state_dict`` keys."""
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            name = f"{prefix}.{key}" if prefix else str(key)
+            if isinstance(val, Mapping):
+                walk(val, name)
+            else:
+                flat[name] = val
+    walk(tree["params"], "")
+    return flat

@@ -49,7 +49,8 @@ def _sources():
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_int64
     lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
     lib.cosine_score_tile_launch.restype = i
     lib.cosine_topk_merge_launch.argtypes = [p, p, i, i, i, p, p, p]
@@ -59,6 +60,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
     lib.flash_head_dim.restype = i
+    lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, i, i,
+                                             i, f, f, f, f, f, f, p]
+    lib.preprocess_frames_launch.restype = i
+    lib.preprocess_max_smem.restype = i
+    lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i64, i64,
+                                           i64, p]
+    lib.short_attention_launch.restype = i
+    lib.short_attention_smem.argtypes = [i]
+    lib.short_attention_smem.restype = i
+    lib.short_attention_max_smem.restype = i
+    lib.short_attention_head_dim.restype = i
 
 
 def _compile(srcs, out: Path) -> None:

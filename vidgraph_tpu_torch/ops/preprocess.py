@@ -1,0 +1,256 @@
+"""Frame preprocessing: uint8 frames -> resized, CLIP-normalised images.
+
+Counterpart of ``vidgraph_tpu/ops/preprocess.py``.  The TPU kernel there,
+``_normalize_kernel`` (``pallas_call`` in ``_pallas_normalize``), maps uint8
+frames to ``x / (255 std_c) - mean_c / std_c``; serving never reaches it,
+since frames larger than the tower's input take ``preprocess_frames(fast=
+True)`` (two bf16 XLA matmuls) and same-size frames the jnp affine.  So the
+kernel here, ``preprocess_frames`` of ``csrc/preprocess.cu``, computes the
+whole of ``preprocess_frames`` in one launch: uint8 [B, H, W, 3] -> the
+separable antialiased triangle-filter resize -> the CLIP affine -> [B, S, S,
+3], in the three modes of the JAX function:
+
+* same size (H = W = S): float32 ``(x - 255 mean_c) / (255 std_c)``;
+* ``fast=True``: bfloat16 out.  The height pass uses the bf16-rounded
+  ``_interp_matrix`` and rounds its sums to bf16; the width pass uses the
+  bf16-rounded ``_norm_block_matrix`` (resize weight times
+  ``1 / (255 std_c)``), accumulates in float32 and rounds to bf16; then the
+  bf16 bias ``-mean_c / std_c`` is added in bf16;
+* ``fast=False``: float32 separable resize, then the float32 affine.
+
+The kernel makes the same roundings as the plain version, so the two differ
+only by float32 summation order.  Each block computes one output row of one
+frame: the height pass over the few source rows that the filter covers goes
+into shared memory (one float per source column and channel), and the width
+pass reads it from there.  Per-output start offsets and tap weights are
+host tables built once per (source size, output size, mode) and kept on
+the device.
+
+What bounds it on the H100: bytes.  At the serving shape (5 frames of
+405 x 720 -> 224, bf16 out) it reads 4.37 MB and writes 1.51 MB: 1.8 us at
+3.35 TB/s, less than the launch and this wrapper take.  The upload of the
+raw frames from the host (875 KB a frame) costs more than the kernel.
+
+Dispatch: ``preprocess_frames`` takes the plain version for a tensor on the
+CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, ``REF_CALLS`` the plain
+version's calls.  ``patchify`` is the JAX package's, in its NHWC
+``(p, p, c)`` flatten order.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+# CLIP pixel statistics (public constants).
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+# kernel vs plain version: float32 modes to float32 summation order; the
+# bf16 mode to 2 bf16 ulps at |out| in [2, 4) (|out| < 2.2 for CLIP)
+TOL_F32 = 1e-4
+TOL_FAST = 2 * 2.0 ** -6
+
+LAUNCHES: Dict[str, int] = {"preprocess": 0}
+REF_CALLS = 0
+
+
+def reset_counts() -> None:
+    global REF_CALLS
+    LAUNCHES["preprocess"] = 0
+    REF_CALLS = 0
+
+
+@functools.lru_cache(maxsize=32)
+def _interp_matrix(dst: int, src: int) -> np.ndarray:
+    """1-D antialiased bilinear (triangle-kernel) interpolation matrix
+    [dst, src] (the JAX package's, as it is)."""
+    scale = src / dst
+    support = max(1.0, scale)
+    out = np.zeros((dst, src), np.float32)
+    centers = (np.arange(dst) + 0.5) * scale - 0.5
+    for i, center in enumerate(centers):
+        lo = max(0, int(np.floor(center - support)))
+        hi = min(src - 1, int(np.ceil(center + support)))
+        j = np.arange(lo, hi + 1)
+        w = np.maximum(0.0, 1.0 - np.abs(j - center) / support)
+        s = w.sum()
+        if s > 0:
+            out[i, lo:hi + 1] = w / s
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _norm_block_matrix(dst: int, src: int, c: int) -> np.ndarray:
+    """Width resize and the CLIP scale as one [src*c, dst*c] block matrix:
+    ``R[(s, ch), (w, ch)] = interp[w, s] / (255 std_ch)`` (the JAX
+    package's, as it is)."""
+    base = _interp_matrix(dst, src)
+    blocks = np.kron(base.T, np.eye(c, dtype=np.float32))
+    inv_std = np.tile(1.0 / (255.0 * np.asarray(CLIP_STD, np.float32)), dst)
+    return blocks * inv_std[None, :]
+
+
+@functools.lru_cache(maxsize=8)
+def _mean_std_255(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device) * 255.0
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device) * 255.0
+    return mean, std
+
+
+def _fast_bias() -> np.ndarray:
+    """``-mean_c / std_c`` in float32, per channel."""
+    return (-np.asarray(CLIP_MEAN, np.float32)
+            / np.asarray(CLIP_STD, np.float32))
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=32)
+def _ref_matrices(h: int, w: int, size: int, c: int, fast: bool,
+                  device: torch.device):
+    """The plain version's resize matrices on ``device``, kept: bf16
+    (height, width-and-scale, bias) when ``fast``, else float32 (height,
+    width)."""
+    if fast:
+        return (_bf16(_interp_matrix(size, h)).to(device),
+                _bf16(_norm_block_matrix(size, w, c)).to(device),
+                _bf16(np.tile(_fast_bias(), size)).to(device))
+    return (torch.from_numpy(_interp_matrix(size, h)).to(device),
+            torch.from_numpy(_interp_matrix(size, w)).to(device))
+
+
+def preprocess_ref(frames_u8: torch.Tensor, size: int = 224,
+                   fast: bool = False) -> torch.Tensor:
+    """Plain version: ``vidgraph_tpu.ops.preprocess.preprocess_frames`` in
+    PyTorch ops (matrix products for the resize)."""
+    x = frames_u8
+    b, h, w, c = x.shape
+    dev = x.device
+    if (h, w) == (size, size):
+        mean, std = _mean_std_255(dev)
+        return (x.float() - mean) / std
+    if fast:
+        rh, r2, bias = _ref_matrices(h, w, size, c, True, dev)
+        y = torch.einsum("hs,bswc->bhwc", rh.float(),
+                         x.float()).to(torch.bfloat16)
+        y2 = (y.reshape(b, size, w * c).float() @ r2.float()) \
+            .to(torch.bfloat16)
+        return (y2 + bias).reshape(b, size, size, c)
+    rh, rw = _ref_matrices(h, w, size, c, False, dev)
+    y = torch.einsum("hs,bswc->bhwc", rh, x.float())
+    y = torch.einsum("vw,bhwc->bhvc", rw, y)
+    mean, std = _mean_std_255(dev)
+    return (y - mean) / std
+
+
+def preprocess_frames(frames_u8: torch.Tensor, size: int = 224,
+                      fast: bool = False) -> torch.Tensor:
+    """[B, H, W, 3] uint8 -> [B, size, size, 3], CLIP-normalised: bfloat16
+    when ``fast`` and resizing, float32 otherwise.  The CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    global REF_CALLS
+    if frames_u8.dim() != 4 or frames_u8.shape[-1] != 3:
+        raise ValueError(f"frames {tuple(frames_u8.shape)} must be "
+                         "[B, H, W, 3]")
+    if frames_u8.dtype != torch.uint8:
+        raise ValueError(f"frames are {frames_u8.dtype}; uint8 expected")
+    if frames_u8.device.type == "cpu":
+        REF_CALLS += 1
+        return preprocess_ref(frames_u8, size, fast)
+    if frames_u8.device.type != "cuda":
+        raise ValueError(f"no preprocess kernel for {frames_u8.device}")
+    return _cuda_preprocess(frames_u8, size, fast)
+
+
+def _windows(m: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A dense [dst, src] weight matrix as per-row windows of one width:
+    (start [dst] int32, weights [dst, taps]).  A window that would run
+    past the source is shifted left, so every tap reads inside it."""
+    dst, src = m.shape
+    nz = m != 0
+    lo = nz.argmax(axis=1)
+    hi = src - 1 - nz[:, ::-1].argmax(axis=1)
+    taps = int((hi - lo + 1).max())
+    start = np.minimum(lo, src - taps).astype(np.int32)
+    idx = start[:, None] + np.arange(taps)[None, :]
+    return start, np.take_along_axis(m, idx, axis=1)
+
+
+def _host_tables(h: int, w: int, size: int, fast: bool):
+    """(int32 starts [2 size], float32 weights, h_taps, w_taps, a, b) for
+    the kernel: height windows, then width windows per channel [3, size,
+    taps]; ``a, b`` the per-channel affine constants."""
+    same = (h, w) == (size, size)
+    if same or not fast:
+        mh, mw = _interp_matrix(size, h), _interp_matrix(size, w)
+        mw = np.stack([mw] * 3)
+    else:
+        mh = _bf16(_interp_matrix(size, h)).float().numpy()
+        r2 = _bf16(_norm_block_matrix(size, w, 3)).float().numpy()
+        r2 = r2.reshape(w, 3, size, 3)
+        mw = np.stack([r2[:, ch, :, ch].T for ch in range(3)])
+    hs, hw = _windows(mh)
+    ws, ww = _windows(np.concatenate(list(mw)))
+    ws = ws[:size]   # the channels share one window layout
+    ww = ww.reshape(3, size, -1)
+    if fast and not same:
+        a = _bf16(_fast_bias()).float().numpy()
+        b = np.ones(3, np.float32)
+    else:
+        a = np.asarray(CLIP_MEAN, np.float32) * np.float32(255.0)
+        b = np.asarray(CLIP_STD, np.float32) * np.float32(255.0)
+    starts = np.concatenate([hs, ws]).astype(np.int32)
+    weights = np.concatenate([hw.ravel(), ww.ravel()]).astype(np.float32)
+    return starts, weights, hw.shape[1], ww.shape[2], a, b
+
+
+@functools.lru_cache(maxsize=32)
+def _tables(h: int, w: int, size: int, fast: bool, device: torch.device):
+    """``_host_tables`` with the starts and weights on ``device``, kept."""
+    starts, weights, th, tw, a, b = _host_tables(h, w, size, fast)
+    return (torch.from_numpy(starts).to(device),
+            torch.from_numpy(weights).to(device), th, tw, a, b)
+
+
+def _cuda_preprocess(x: torch.Tensor, size: int,
+                     fast: bool) -> torch.Tensor:
+    b, h, w, c = x.shape
+    lib = _build.library()
+    if not x.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    if w * c * 4 > lib.preprocess_max_smem():
+        raise ValueError(f"width {w}: the kernel stages a row of at most "
+                         f"{lib.preprocess_max_smem() // 12} pixels")
+    if b == 0 or b > 65535:
+        raise ValueError(f"B = {b}: the kernel takes 1..65535 frames")
+    bf16_out = fast and (h, w) != (size, size)
+    starts, weights, th, tw, a, bb = _tables(h, w, size, fast, x.device)
+    out = torch.empty((b, size, size, c), device=x.device,
+                      dtype=torch.bfloat16 if bf16_out else torch.float32)
+    f = ctypes.c_float
+    with torch.cuda.device(x.device):
+        _build.check(lib.preprocess_frames_launch(
+            x.data_ptr(), out.data_ptr(), b, h, w, size,
+            starts.data_ptr(), weights.data_ptr(), th, tw, int(bf16_out),
+            f(a[0]), f(a[1]), f(a[2]), f(bb[0]), f(bb[1]), f(bb[2]),
+            torch.cuda.current_stream().cuda_stream), "preprocess_frames")
+        LAUNCHES["preprocess"] += 1
+    return out
+
+
+def patchify(images: torch.Tensor, patch: int = 32) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)(W/p), p p C], each patch flattened in
+    ``(p, p, c)`` order (the JAX package's; ``unfold`` would reorder)."""
+    b, h, w, c = images.shape
+    nh, nw = h // patch, w // patch
+    x = images.reshape(b, nh, patch, nw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, nh * nw, patch * patch * c)

@@ -86,7 +86,35 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    planted fault (the short-attention kernel without its ``1/sqrt(hd)``
    scale) are read beside them; ``kg`` -> ``batch-retrieve`` run on the
    written ``vlm_output.json`` as subprocesses, and the ViT and
-   ``generate`` are timed.
+   ``generate`` are timed;
+12. the w8a16 kernel (``ops/q8_matmul.py``) against its plain version on
+   the card: the eight (K, N) of the block matrices of
+   ``CaptionerConfig.large()`` and ``base()`` x M in {1, 5, 8, 32, 64},
+   plus a column of zeros (the scale's floor, 1e-8) and |x| up to 1e3:
+   max |err| <= 1e-4 x max |plain|, and two runs equal bit for bit.  Then
+   device times per call (``graph_ms``; every call of a replay reads
+   another copy of the weights, 20 copies, so that the weights of
+   ``large()`` come from device memory as they do in a decode) of the
+   kernel, the plain version, the plain ``a16`` expression, and two
+   yardsticks the port never calls: cuBLAS ``x_bf16 @ w_bf16`` and
+   ``torch._weight_int8pack_mm`` (null where this torch does not run it);
+13. quantised serving at full width: seed weights for ``ViTConfig.b32()``
+   and ``CaptionerConfig.large()`` in bfloat16, written as a JAX-format
+   npz and loaded by ``TPUVLMClient(checkpoint=..., param_dtype=bfloat16,
+   quantize=...)``.  (i) ``quantize`` None, ``int8`` and ``int8_a8`` each
+   caption two synthetic chunks; the int8 tree holds under 0.55 of the
+   bf16 tree's bytes.  (ii) The int8 tree with ``qmode='a16p'`` through
+   ``generate`` at B = 4 and 8, 64 new bytes, between a reset and a read
+   of the counts: the kernel's launches equal 4 products x 24 layers x the
+   decode steps, plus the prefill's when its B x 9 rows are at most 64,
+   and the plain version serves nothing.  (iii) Teacher-forced ``forward``
+   logits (one sequence a call, 40 rows): each int8 mode against bf16 by
+   cosine, ``a16p`` against ``a16`` within ``Q8_LOGIT_TOL``, and a planted
+   fault (the kernel without its scale) past it.  (iv) ms/step and
+   tokens/s of the four modes at B = 8 and 32
+   (``scripts/profile_torch_int8_decode.py::bench_decode``).  (v) The
+   CLI's ``vlm`` with ``vlm.quantize: int8`` at ``base()`` width on phase
+   11's frame source.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Each
@@ -109,6 +137,8 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
+import itertools
 import json
 import os
 import random
@@ -137,6 +167,19 @@ LOGIT_TOL = 0.05
 # 1/sqrt(hd) scale) moved them by 0.85.  The limit sits between the two,
 # and the run fails if the planted fault does not exceed it.
 VISION_LOGIT_TOL = 0.05
+# phase 13: teacher-forced logits of the int8 tree at CaptionerConfig.
+# large() width, 24 layers deep.  The kernel (a16p) rounds a product to
+# bf16 once, the plain a16 expression twice: on an H100 80GB HBM3 (700 W)
+# the two differed by 0.047 at a logit scale of 3.4, and the planted fault
+# (the kernel without its scale) moved the logits by 3.2; the limit sits
+# between, and the run fails if the fault does not exceed it.  The cosines
+# against the bf16 tree read 0.99953 (a16), 0.99954 (a16p), 0.99916 (a8).
+Q8_LOGIT_TOL = 0.1
+Q8_COSINE_MIN = 0.998
+# phase 13: the same bf16 logits with the flash kernel (16 heads of 128,
+# T = 40) and with the plain attention, 24 layers deep: 0.031 apart at a
+# logit scale of 3.4 on an H100 80GB HBM3 (700 W).
+LARGE_FLASH_LOGIT_TOL = 0.1
 # H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 _TIKTOKEN_BLOCK = ('raise ImportError("tiktoken is kept out of this run: its '
@@ -528,7 +571,14 @@ def phase_cli(device: str = "cuda") -> None:
 
 
 # ------------------------------------------------------------------ phase 6
-FLASH_SHAPES = [(1, 2056), (8, 2056), (32, 2056), (4, 1033), (4, 40)]
+# (B, T, heads, head dim): the chat LM's and base()'s 8 x 64, then the 16 x
+# 128 of CaptionerConfig.large() at the shapes phase 13 gives the kernel
+# (generate's prefill of nv + BOS = 9 at B 4/8/32, sequence_logits' T = 40)
+# and one long T.
+FLASH_SHAPES = [(1, 2056, 8, 64), (8, 2056, 8, 64), (32, 2056, 8, 64),
+                (4, 1033, 8, 64), (4, 40, 8, 64),
+                (4, 9, 16, 128), (8, 9, 16, 128), (32, 9, 16, 128),
+                (1, 40, 16, 128), (1, 2056, 16, 128)]
 
 
 def phase_flash(seed: int, card: str) -> dict:
@@ -539,9 +589,9 @@ def phase_flash(seed: int, card: str) -> dict:
 
     rng = np.random.default_rng(seed + 2)
     rows = {}
-    for b, t in FLASH_SHAPES:
+    for b, t, h, hd in FLASH_SHAPES:
         q, k, v = (torch.from_numpy(rng.standard_normal(
-            (b, t, 8, 64), dtype=np.float32)).to("cuda", torch.bfloat16)
+            (b, t, h, hd), dtype=np.float32)).to("cuda", torch.bfloat16)
             for _ in range(3))
         got = fa.flash_attention(q, k, v, 8)
         torch.cuda.synchronize()
@@ -549,7 +599,8 @@ def phase_flash(seed: int, card: str) -> dict:
         err = (got.float() - ref).abs()
         excess = float((err - fa.TOL_ABS - fa.TOL_REL * ref.abs()).max())
         assert bool(torch.isfinite(got).all()) and excess <= 0, \
-            f"flash b={b} T={t}: max |err| {float(err.max())} over tolerance"
+            f"flash b={b} T={t} heads {h} x {hd}: max |err| " \
+            f"{float(err.max())} over tolerance"
         row = {"max_abs_err": float(err.max())}
         del got, ref, err
         if t == 2056:
@@ -559,12 +610,13 @@ def phase_flash(seed: int, card: str) -> dict:
                 lambda: fa.attention_ref(q, k, v, 8), reps=5 if b > 8 else 20)
             row.update(library_sdpa(q, k, v, fa.prefix_causal_mask(
                 t, 8, q.device)))
-        rows[f"b{b}_T{t}"] = row
+        rows[f"b{b}_T{t}" + ("" if hd == 64 else f"_h{h}x{hd}")] = row
         del q, k, v
         torch.cuda.empty_cache()
     log(f"phase 6: flash kernel within {fa.TOL_ABS} + {fa.TOL_REL} x |plain| "
-        f"of the plain version; times on {card} (median, ms), 8 heads x 64, "
-        f"bf16, nv 8: {json.dumps(rows)}")
+        f"of the plain version at 8 heads x 64 and 16 x 128 (keys "
+        f"_h16x128), bf16, nv 8; times on {card} (median, ms): "
+        f"{json.dumps(rows)}")
     return rows
 
 
@@ -1217,8 +1269,322 @@ def phase_vision(seed: int, card: str) -> dict:
     return out
 
 
-def kernel_record(kern, main_path, flash, chat, pre, short,
-                  vision) -> dict:
+# ----------------------------------------------------------------- phase 12
+Q8_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
+             (512, 1536), (512, 512), (512, 2048), (2048, 512)]
+Q8_COPIES = 20
+# rows held against the plain version: decode steps, 5 (no multiple of 16),
+# and what phase 13 gives the kernel besides: B = 4 (generate's steps, and
+# its prefill of 4 x 9 = 36 rows) and sequence_logits' 40.  Between them
+# every row-tile count (1 to 4 tiles of 16) runs.
+Q8_CHECK_M = (1, 4, 5, 8, 32, 36, 40, 64)
+
+
+def rotating(fn, items):
+    """``fn`` over ``items`` in turn, one a call: each of a replay's 20
+    calls reads another copy of the weights."""
+    turn = itertools.cycle(items)
+    return lambda: fn(next(turn))
+
+
+def check_q8(q8, x, q, s) -> tuple:
+    """The kernel twice (equal bits) and against the plain version;
+    returns (max |err|, max |plain|)."""
+    got = q8.q8_matmul(x, q, s)
+    again = q8.q8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    ref = q8.q8_matmul_ref(x, q, s)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool(torch.isfinite(got).all()), "q8_matmul: not finite"
+    assert torch.equal(got, again), \
+        f"q8_matmul {tuple(x.shape)} x {tuple(q.shape)}: two runs differ"
+    err, top = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= q8.TOL_REL * top, \
+        f"q8_matmul {tuple(x.shape)} x {tuple(q.shape)}: max |err| {err} " \
+        f"> {q8.TOL_REL} x {top}"
+    return err, top
+
+
+def phase_q8_matmul(seed: int, card: str) -> dict:
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+    from vidgraph_tpu_torch.models import quant8
+    from vidgraph_tpu_torch.ops import q8_matmul as q8
+
+    rng = np.random.default_rng(seed + 5)
+    bf16 = torch.bfloat16
+
+    def activations(m, k, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(
+            (m, k), dtype=np.float32) * scale).to("cuda", bf16)
+
+    rows, worst_abs, worst_rel = {}, 0.0, 0.0
+    int8pack_reason = None
+    for k, n in Q8_SHAPES:
+        w = torch.from_numpy(rng.standard_normal(
+            (k, n), dtype=np.float32) * 0.02).cuda()
+        wq = quant8.quantize_matrix(w)
+        for m in Q8_CHECK_M:
+            err, top = check_q8(q8, activations(m, k), wq.q, wq.s)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                            err / top)
+        qs = [wq.q.clone() for _ in range(Q8_COPIES)]
+        qts = [q.t().contiguous() for q in qs]
+        ws = [w.to(bf16) for _ in range(Q8_COPIES)]
+        s, s16 = wq.s, wq.s.to(bf16)
+        for m in (1, 8, 32):
+            x = activations(m, k)
+            row = {
+                "kernel_ms": graph_ms(rotating(
+                    lambda q: q8.q8_matmul(x, q, s), qs)),
+                "splits": q8.split_k(m, k, n),
+                "plain_ms": graph_ms(rotating(
+                    lambda q: q8.q8_matmul_ref(x, q, s), qs)),
+                "a16_ms": graph_ms(rotating(
+                    lambda q: ((x @ q.to(bf16)).float() * s).to(bf16), qs)),
+                "cublas_bf16_ms": graph_ms(rotating(lambda v: x @ v, ws)),
+                "int8pack_ms": None,
+                **bound(k * n + 2 * m * k + 4 * n + 4 * m * n,
+                        2.0 * m * k * n, BF16_FLOPS),
+                "bf16_bound_ms": bound(2 * k * n + 2 * m * k + 2 * m * n,
+                                       2.0 * m * k * n,
+                                       BF16_FLOPS)["bound_ms"]}
+            if int8pack_reason is None:
+                try:
+                    row["int8pack_ms"] = graph_ms(rotating(
+                        lambda qt: torch._weight_int8pack_mm(x, qt, s16),
+                        qts))
+                except (RuntimeError, AttributeError,
+                        NotImplementedError) as exc:
+                    int8pack_reason = f"{type(exc).__name__}: {exc}"[:300]
+                    torch.cuda.synchronize()
+            rows[f"K{k}_N{n}_M{m}"] = row
+        del qs, qts, ws, w, wq
+        torch.cuda.empty_cache()
+    # a column of zeros (its scale is the floor) and |x| up to 1e3
+    w = torch.from_numpy(rng.standard_normal(
+        (2048, 2048), dtype=np.float32) * 0.02).cuda()
+    w[:, 3] = 0.0
+    wq = quant8.quantize_matrix(w)
+    x = activations(8, 2048)
+    x = (x.float() / x.float().abs().max() * 1e3).to(bf16)
+    assert float(wq.s[3]) == float(np.float32(1e-8))
+    err, top = check_q8(q8, x, wq.q, wq.s)
+    assert not bool(q8.q8_matmul(x, wq.q, wq.s)[:, 3].any())
+    worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / top)
+    if int8pack_reason:
+        log(f"phase 12: torch._weight_int8pack_mm does not run here: "
+            f"{int8pack_reason}")
+    log(f"phase 12: q8_matmul within {q8.TOL_REL} x max |plain| of the plain "
+        f"version at {len(Q8_SHAPES)} (K, N) x M "
+        f"{'/'.join(map(str, Q8_CHECK_M))} (worst max "
+        f"|err| / max |plain| {worst_rel:.3e}), two runs equal bit for bit; "
+        f"times on {card} (ms; device time per call, 20 calls replayed "
+        f"from a CUDA graph over 20 copies of the weights): "
+        f"{json.dumps(rows)}")
+    return {"rows": rows, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "int8pack_reason": int8pack_reason}
+
+
+# ----------------------------------------------------------------- phase 13
+QUANT_CHUNKS, QUANT_NEW = 2, 64
+
+
+def flat_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.flatten().double(), b.flatten().double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_quantized(seed: int, card: str) -> dict:
+    from vidgraph_tpu_torch.cli.main import main as cli_main
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     decode_steps, generate,
+                                                     init_params)
+    from vidgraph_tpu_torch.models.checkpoint import save_params
+    from vidgraph_tpu_torch.models.quant8 import is_q8, tree_bytes
+    from vidgraph_tpu_torch.models.vit import (ViTConfig, init_vision_tower,
+                                               param_tree)
+    from vidgraph_tpu_torch.ops import q8_matmul as q8
+    from vidgraph_tpu_torch.pipeline import vlm_extractor
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import profile_torch_int8_decode as p8
+
+    large = CaptionerConfig.large()
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed + 6)
+    chunks = [c for _, _, c in synthetic_chunks(QUANT_CHUNKS, VISION_FRAMES,
+                                                5.0)]
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            tower = init_vision_tower(ViTConfig.b32(), gen)
+            cap = init_params(large, gen, param_dtype=torch.bfloat16)
+            ckpt = save_params({"vit": param_tree(tower), "cap": cap},
+                               str(tmp / "vlm_large.npz"))
+            del tower, cap
+            log(f"phase 13: seed weights for ViT-B/32 + CaptionerConfig."
+                f"large() written in {time.perf_counter() - t0:.1f} s "
+                f"({Path(ckpt).stat().st_size / 1e9:.2f} GB npz)")
+
+            # (i) the three clients a config can ask for
+            clients, captions, nbytes, caption_s = {}, {}, {}, {}
+            for name, quantize in (("bf16", None), ("int8", "int8"),
+                                   ("int8_a8", "int8_a8")):
+                t0 = time.perf_counter()
+                client = TPUVLMClient(cap_cfg=large, checkpoint=ckpt,
+                                      param_dtype=torch.bfloat16,
+                                      quantize=quantize, preprocess="device")
+                load_s = time.perf_counter() - t0
+                assert client.quantize == quantize
+                assert client.cap_cfg.qmode == {"int8_a8": "a8"}.get(name,
+                                                                     "a16")
+                assert is_q8(client._serve_params["blocks"][0]["qkv_w"]) \
+                    == (quantize is not None)
+                q8.reset_counts()
+                t0 = time.perf_counter()
+                captions[name] = client.caption_batch_sync(chunks)
+                torch.cuda.synchronize()
+                caption_s[name] = {"load_s": load_s,
+                                   "caption_s": time.perf_counter() - t0}
+                assert len(captions[name]) == QUANT_CHUNKS and all(
+                    isinstance(c, str) for c in captions[name])
+                assert q8.LAUNCHES["q8_matmul"] == 0 and q8.REF_CALLS == 0, \
+                    f"{name}: a config value reached the a16p kernel"
+                nbytes[name] = tree_bytes(client.cap_params)
+                if name != "int8_a8":
+                    clients[name] = client
+                del client
+            ratio = nbytes["int8"] / nbytes["bf16"]
+            assert nbytes["int8"] == nbytes["int8_a8"] and ratio < 0.55, nbytes
+            log(f"phase 13: three clients captioned {QUANT_CHUNKS} chunks; "
+                f"tree bytes {json.dumps(nbytes)} (int8 / bf16 {ratio:.4f}); "
+                f"{json.dumps(caption_s)}")
+
+            # (ii) the kernel's path: the int8 tree with qmode a16p
+            qtree = clients["int8"]._serve_params
+            ftree = clients["bf16"]._serve_params
+            qcfg = {m: dataclasses.replace(large, qmode=m)
+                    for m in ("a16", "a8", "a16p")}
+            per_step = 4 * large.layers
+            launches = {}
+            for b in (4, 8):
+                vis = torch.from_numpy(rng.standard_normal(
+                    (b, large.num_vision_tokens, large.vision_dim),
+                    dtype=np.float32)).cuda()
+                q8.reset_counts()
+                toks = generate(qtree, qcfg["a16p"], vis, max_new=QUANT_NEW)
+                torch.cuda.synchronize()
+                got = {"kernel": q8.LAUNCHES["q8_matmul"],
+                       "plain": q8.REF_CALLS}
+                steps = decode_steps(toks, QUANT_NEW)
+                rows = b * (large.num_vision_tokens + 1)
+                want = per_step * steps + (per_step if rows <= q8.MAX_M
+                                           else 0)
+                launches[f"b{b}"] = {**got, "expected": want,
+                                     "decode_steps": steps,
+                                     "prefill_rows": rows}
+                assert toks.shape == (b, QUANT_NEW)
+                assert got["kernel"] == want, launches
+                assert got["plain"] == 0, launches
+            log(f"phase 13: generate with qmode a16p: launches "
+                f"{json.dumps(launches)}")
+
+            # (iii) logits: each int8 mode against bf16, a16p against a16,
+            # and a planted fault
+            vis = torch.from_numpy(rng.standard_normal(
+                (4, large.num_vision_tokens, large.vision_dim),
+                dtype=np.float32)).cuda()
+            toks = torch.from_numpy(rng.integers(3, 250, (4, 32))).cuda()
+            ref = p8.sequence_logits(ftree, large, vis, toks)
+            no_flash = p8.sequence_logits(ftree, large, vis, toks,
+                                          flash=False)
+            flash_diff = float((ref - no_flash).abs().max())
+            del no_flash
+            q8.reset_counts()
+            got = {m: p8.sequence_logits(qtree, qcfg[m], vis, toks)
+                   for m in qcfg}
+            assert q8.LAUNCHES["q8_matmul"] == 4 * per_step, q8.LAUNCHES
+            sound = q8.q8_matmul
+            q8.q8_matmul = lambda x, q, s: sound(x, q, torch.ones_like(s))
+            try:
+                fault = p8.sequence_logits(qtree, qcfg["a16p"], vis, toks)
+            finally:
+                q8.q8_matmul = sound
+            torch.cuda.synchronize()
+            cosines = {m: flat_cosine(ref, got[m]) for m in got}
+            diff = float((got["a16p"] - got["a16"]).abs().max())
+            fault_diff = float((fault - got["a16"]).abs().nan_to_num(
+                nan=float("inf")).max())
+            logits = {
+                "cosine_vs_bf16": cosines,
+                "max_abs_diff_vs_bf16": {
+                    m: float((got[m] - ref).abs().max()) for m in got},
+                "a16p_vs_a16_max_abs_diff": diff, "tol": Q8_LOGIT_TOL,
+                "bf16_flash_vs_plain_attention_max_abs_diff": flash_diff,
+                "flash_tol": LARGE_FLASH_LOGIT_TOL,
+                "planted_fault": "q8_matmul without its scale",
+                "planted_fault_max_abs_diff": fault_diff,
+                "logit_scale": float(ref.abs().max())}
+            log(f"phase 13: teacher-forced logits at large() width: "
+                f"{json.dumps(logits)}")
+            assert all(bool(torch.isfinite(v).all()) for v in got.values())
+            assert min(cosines.values()) > Q8_COSINE_MIN, cosines
+            assert flash_diff <= LARGE_FLASH_LOGIT_TOL, \
+                f"bf16 logits with the flash kernel (16 heads of 128) " \
+                f"differ from the plain attention's by {flash_diff} > " \
+                f"{LARGE_FLASH_LOGIT_TOL}"
+            assert diff <= Q8_LOGIT_TOL, \
+                f"a16p logits differ from a16 by {diff} > {Q8_LOGIT_TOL}"
+            assert fault_diff > Q8_LOGIT_TOL, \
+                f"a planted fault moved the logits by {fault_diff} only"
+
+            # (iv) the four modes' decode rates
+            trees = {"bf16": (ftree, large), "int8_a16": (qtree, qcfg["a16"]),
+                     "int8_a8": (qtree, qcfg["a8"]),
+                     "int8_a16p": (qtree, qcfg["a16p"])}
+            rates = {name: p8.bench_decode(p, c, (8, 32), QUANT_NEW, 1)
+                     for name, (p, c) in trees.items()}
+            row = rates["int8_a16p"]["batches"][8]
+            assert row["q8_launches_per_call"] == \
+                per_step * row["decode_steps"] and not row["q8_plain_calls"]
+            log(f"phase 13: decode at CaptionerConfig.large() width on "
+                f"{card}, {QUANT_NEW} new bytes: {json.dumps(rates)}")
+            del clients, qtree, ftree, trees, got, ref, fault
+            torch.cuda.empty_cache()
+
+            # (v) vlm.quantize through the CLI, at base() width
+            vlm_extractor.iter_chunk_frames = (
+                lambda path, secs, per_chunk, *a: synthetic_chunks(
+                    QUANT_CHUNKS, per_chunk, secs))
+            vlm_extractor.count_chunks = lambda path, secs: QUANT_CHUNKS
+            (tmp / "quant.yaml").write_text(
+                "backend:\n  vlm: tpu\nvlm:\n  preprocess: device\n"
+                "  quantize: int8\n")
+            q8.reset_counts()
+            rc = cli_main(["vlm", "--config", str(tmp / "quant.yaml"),
+                           "--video", "synthetic_405x720.mp4", "--output",
+                           str(tmp / "vlm_int8.json")])
+            assert rc == 0, f"vlm with vlm.quantize int8 exited {rc}"
+            data = json.loads((tmp / "vlm_int8.json").read_text())
+            assert data["metadata"]["config"]["vlm"]["quantize"] == "int8"
+            assert len(data["results"]) == QUANT_CHUNKS and all(
+                isinstance(r["content"], str) for r in data["results"])
+            assert q8.LAUNCHES["q8_matmul"] == 0 and q8.REF_CALLS == 0
+            log(f"phase 13: CLI vlm with vlm.quantize int8 at base() width: "
+                f"{QUANT_CHUNKS} chunks, exit 0")
+        finally:
+            os.chdir(old_cwd)
+    return {"tree_bytes": nbytes, "int8_over_bf16_bytes": ratio,
+            "clients": caption_s, "launches": launches, "logits": logits,
+            "decode": rates}
+
+
+def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
+                  quant) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -1234,6 +1600,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short,
     vision_counts = [vision["counts"][m] for m in ("einsum", "fused")]
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
+    q8row = q8k["rows"]["K2048_N8192_M32"]
     return {"kernels": [
         {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
          "source": src, "replaces": replaces,
@@ -1292,6 +1659,20 @@ def kernel_record(kern, main_path, flash, chat, pre, short,
          "call_ms": short5["call_ms"],
          "bound_ms": short5["bound_ms"], "bound_by": short5["bound_by"],
          "timed": "B=5 x 12 heads, N=50, hd=64, bf16"},
+        {"name": "q8_matmul", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/q8_matmul.cu",
+         "replaces": "vidgraph_tpu/ops/q8_matmul.py:62",
+         "launches": sum(r["kernel"] for r in quant["launches"].values()),
+         "max_abs_err": q8k["max_abs_err"],
+         "max_rel_err": q8k["max_rel_err"],
+         "ms": q8row["kernel_ms"], "plain_ms": q8row["plain_ms"],
+         "library_ms": q8row["int8pack_ms"],
+         "library": "torch._weight_int8pack_mm",
+         "a16_ms": q8row["a16_ms"],
+         "cublas_bf16_ms": q8row["cublas_bf16_ms"],
+         "bound_ms": q8row["bound_ms"], "bound_by": q8row["bound_by"],
+         "timed": "M=32, K=2048, N=8192 (fc1 of CaptionerConfig.large()), "
+                  "20 copies of the weights in turn"},
     ]}
 
 
@@ -1335,15 +1716,19 @@ def main() -> int:
     short = phase_short_attention(args.seed, card)
     vision = phase_vision(args.seed, card)
     log(f"phases 1-11 done at {time.perf_counter() - t0:.1f} s")
+    q8k = phase_q8_matmul(args.seed, card)
+    quant = phase_quantized(args.seed, card)
+    log(f"phases 1-13 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
-    record = kernel_record(kern, main_path, flash, chat, pre, short, vision)
+    record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
+                           q8k, quant)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
         "retrieval_p95_ms": main_path["p95_ms"],
         "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits,
         "preprocess_ms": pre, "short_attention_ms": short,
-        "vision": vision})
+        "vision": vision, "q8_matmul_ms": q8k, "quantized": quant})
     print(json.dumps(record))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

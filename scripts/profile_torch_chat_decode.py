@@ -37,19 +37,6 @@ from vidgraph_tpu_torch.core.profiling import device_busy_us  # noqa: E402
 PROFILED_STEPS = 32
 
 
-def decode_steps(tokens: torch.Tensor, max_new: int) -> int:
-    """Decode steps the loop of ``generate_from_tokens`` ran for its output
-    ``tokens``: it stops at the first check after every row emitted EOS
-    (every ``_DONE_CHECK`` steps), or after ``max_new - 1`` steps."""
-    from vidgraph_tpu_torch.models.captioner import _DONE_CHECK
-    from vidgraph_tpu_torch.models.tokenizer import EOS_ID
-
-    done = (tokens == EOS_ID).all(0).nonzero()
-    first = int(done[0]) if len(done) else max_new
-    check = first + (_DONE_CHECK - 1 - first) % _DONE_CHECK
-    return max(1, min(max_new - 1, check))
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default="1,2048,128;8,2048,128;32,2048,128")
@@ -62,6 +49,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from vidgraph_tpu_torch.models import tokenizer
     from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     decode_steps,
                                                      generate_from_tokens,
                                                      init_params,
                                                      prefill_logits,

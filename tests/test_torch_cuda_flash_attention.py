@@ -27,12 +27,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _qkv(b, t, h, seed, dev, qk_scale=1.0):
+def _qkv(b, t, h, seed, dev, qk_scale=1.0, hd=64):
     """q, k, v from a numpy seed; q and k scaled by ``qk_scale``, v of
     unit scale (the tolerance's scale)."""
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(
-        (rng.normal(size=(b, t, h, 64)) * s).astype(np.float32)
+        (rng.normal(size=(b, t, h, hd)) * s).astype(np.float32)
     ).to(dev, torch.bfloat16) for s in (qk_scale, qk_scale, 1.0)]
 
 
@@ -51,6 +51,14 @@ def _assert_close(q, k, v, nv):
                                     (1, 1, 8), (2, 200, 100), (1, 64, 64)])
 def test_flash_matches_plain(dev, b, t, nv):
     _assert_close(*_qkv(b, t, 8, t + nv, dev), nv)
+
+
+@pytest.mark.parametrize("b,t,nv", [(4, 9, 8), (8, 9, 8), (2, 1033, 8),
+                                    (1, 2056, 8), (3, 40, 8), (2, 70, 0)])
+def test_flash_head_dim_128_matches_plain(dev, b, t, nv):
+    """The heads of ``CaptionerConfig.large()`` (16 x 128); T = 9 is the
+    prefill of ``generate`` (nv + BOS)."""
+    _assert_close(*_qkv(b, t, 16, t + nv, dev, hd=128), nv)
 
 
 def test_flash_large_scores(dev):

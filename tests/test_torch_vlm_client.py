@@ -34,6 +34,7 @@ from vidgraph_tpu_torch.convert import captioner_params_from_jax  # noqa: E402
 from vidgraph_tpu_torch.core.config import (  # noqa: E402
     PipelineConfig as TConfig)
 from vidgraph_tpu_torch.models import captioner as tcap  # noqa: E402
+from vidgraph_tpu_torch.models.quant8 import is_q8  # noqa: E402
 from vidgraph_tpu_torch.pipeline.vlm_extractor import (  # noqa: E402
     VLMExtractor as TExtractor)
 from vidgraph_tpu_torch.services import vlm_client as tvc  # noqa: E402
@@ -143,10 +144,44 @@ def test_client_captions_equal(vlm_npz, preprocess, fast, shape):
 
 
 def test_quantize_raises():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tvc.TPUVLMClient(preset="tiny64", quantize="int8")
-    with pytest.raises(ValueError):
+    """``int8`` and ``int8_a8`` serve (mode a16 and a8, the block matrices
+    and the head as ``Q8``); any other value raises ``ValueError``."""
+    for quantize, qmode in (("int8", "a16"), ("int8_a8", "a8")):
+        client = tvc.TPUVLMClient(preset="tiny64", quantize=quantize)
+        assert client.quantize == quantize
+        assert client.cap_cfg.qmode == qmode
+        assert is_q8(client.cap_params["head_w"])
+        assert is_q8(client._serve_params["blocks"][0]["qkv_w"])
+    assert tvc.TPUVLMClient(preset="tiny64").quantize is None
+    with pytest.raises(ValueError, match="int8|int8_a8"):
         tvc.TPUVLMClient(preset="tiny64", quantize="int4")
+
+
+@pytest.fixture
+def one_device_serving():
+    """The JAX client ignores ``quantize`` under a serving mesh, and the
+    tests' 8 virtual CPU devices build one: serve single-device."""
+    from vidgraph_tpu.parallel import serving as jserving
+
+    jserving.configure(enabled=False)
+    yield
+    jserving.configure(enabled="auto")
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8_a8"])
+def test_quantized_client_captions_equal(vlm_npz, one_device_serving,
+                                         quantize):
+    """Both clients quantise the same loaded weights; the captions of
+    chunks of 1, 4 and 6 frames are equal."""
+    jc, tc = _clients(vlm_npz, preprocess="device", quantize=quantize)
+    assert tc.cap_cfg.qmode == jc.cap_cfg.qmode
+    np.testing.assert_array_equal(
+        tc.cap_params["blocks"][0]["fc1_w"].q.numpy(),
+        np.asarray(jc.cap_params["blocks"][0]["fc1_w"].q))
+    chunks = _chunks((96, 128, 3), [1, 4, 6], seed=11)
+    ref = jc.caption_batch_sync(chunks)
+    got = tc.caption_batch_sync(chunks)
+    assert got == ref and len(got) == 3
 
 
 def test_make_vlm_client_reads_the_config(vlm_npz):
@@ -161,7 +196,11 @@ def test_make_vlm_client_reads_the_config(vlm_npz):
     assert client.vit_cfg.image_size == 64 and client.max_new == 256
     assert isinstance(tvc.make_vlm_client("local"), tvc.LocalVLMClient)
     cfg.vlm.quantize = "int8_a8"
-    with pytest.raises(NotImplementedError):
+    quantised = tvc.make_vlm_client("tpu", cfg.vlm)
+    assert quantised.quantize == "int8_a8"
+    assert quantised.cap_cfg.qmode == "a8"
+    cfg.vlm.quantize = "int4"
+    with pytest.raises(ValueError):
         tvc.make_vlm_client("tpu", cfg.vlm)
 
 

@@ -54,8 +54,14 @@ def captioner_params_from_jax(tree: Any,
                               device: Optional[torch.device] = None) -> Any:
     """The port's captioner parameters from a JAX captioner tree (``init_
     params`` layout) whose leaves are numpy arrays: float32, or bfloat16
-    as ``ml_dtypes.bfloat16`` or as uint16 bit patterns.  Values and
-    dtypes are kept bit for bit."""
+    as ``ml_dtypes.bfloat16`` or as uint16 bit patterns.  A leaf with
+    ``q`` and ``s`` (the JAX package's ``Q8`` with numpy children) becomes
+    the port's ``Q8``.  Values and dtypes are kept bit for bit."""
+    if hasattr(tree, "q") and hasattr(tree, "s"):
+        from .models.quant8 import Q8
+
+        return Q8(captioner_params_from_jax(tree.q, device),
+                  captioner_params_from_jax(tree.s, device))
     if isinstance(tree, Mapping):
         return {k: captioner_params_from_jax(v, device)
                 for k, v in tree.items()}

@@ -5,9 +5,10 @@
 // flash_attention (causal, 512/384/256/128 blocks over a sequence padded by
 // flash_pad_len) followed by a dense recompute of the nv x nv vision-prefix
 // corner.  This kernel computes the same function in one pass, for
-// q, k, v, out [B, T, H, 64] bfloat16, contiguous:
+// q, k, v, out [B, T, H, hd] bfloat16, contiguous, hd 64 or 128 (the heads
+// of CaptionerConfig.base()/chat() and of large()):
 //
-//   s[r,c] = (q[r] . k[c]) / sqrt(64)                 (float32 accumulation)
+//   s[r,c] = (q[r] . k[c]) / sqrt(hd)                 (float32 accumulation)
 //   visible(r,c) = c <= max(r, nv - 1)                 (causal + prefix)
 //   out[r] = sum_c softmax_c(s[r,c] | visible) v[c]    (float32, then bf16)
 //
@@ -43,13 +44,11 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = 16;                  // the m16 of the mma
 constexpr int kQTile = kWarps * kRowsPerWarp;     // 64 query rows a block
 constexpr int kKTile = 64;                        // keys a shared tile
-constexpr int kKStride = kHeadDim + 8;            // K smem row, padded
 constexpr int kVStride = kKTile + 8;              // V^T smem row, padded
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -67,12 +66,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+template <int kHeadDim>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ out, int T, int H, int nv,
                float scale_log2) {
+  constexpr int kKStride = kHeadDim + 8;          // K smem row, padded
+  constexpr int kDimSteps = kHeadDim / 16;        // k-steps of q . k
+  constexpr int kDimTiles = kHeadDim / 8;         // n-tiles of p . v
+  constexpr int kRowChunks = kHeadDim / 8;        // 16-byte chunks a row
   __shared__ __align__(16) __nv_bfloat16 ks[kKTile * kKStride];
   __shared__ __align__(16) __nv_bfloat16 vts[kHeadDim * kVStride];
 
@@ -86,10 +90,10 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
   // this thread's two query rows: row0 (fragment rows g) and row0 + 8
   const int row0 = qt * kQTile + warp * kRowsPerWarp + g;
 
-  // q fragments (A operand, 16 rows x 64 dims = 4 k-steps of 16)
-  uint32_t qf[4][4];
+  // q fragments (A operand, 16 rows x hd dims = hd / 16 k-steps of 16)
+  uint32_t qf[kDimSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kDimSteps; ++kk) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = row0 + (e & 1) * 8;
@@ -102,9 +106,9 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
 
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
   float l[2] = {0.f, 0.f};                      // running sum (this thread)
-  float o[8][4];
+  float o[kDimTiles][4];
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd) {
+  for (int nd = 0; nd < kDimTiles; ++nd) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
   }
@@ -116,9 +120,9 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int key0 = kt * kKTile;
     __syncthreads();                              // last tile's readers done
-    // K tile, [key][dim]: neighbouring threads read one key's 128 bytes
-    for (int i = threadIdx.x; i < kKTile * (kHeadDim / 8); i += kThreads) {
-      const int kr = i >> 3, c8 = (i & 7) * 8;
+    // K tile, [key][dim]: neighbouring threads read one key's row
+    for (unsigned i = threadIdx.x; i < kKTile * kRowChunks; i += kThreads) {
+      const int kr = i / kRowChunks, c8 = (i % kRowChunks) * 8;
       const int key = key0 + kr;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (key < T)
@@ -127,7 +131,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
     }
     // V tile transposed, [dim][key]: neighbouring threads take neighbouring
     // keys, so the 2-byte stores of one dim fall on one row of shared memory
-    for (int i = threadIdx.x; i < kKTile * (kHeadDim / 8); i += kThreads) {
+    for (unsigned i = threadIdx.x; i < kKTile * kRowChunks; i += kThreads) {
       const int kr = i & (kKTile - 1), c8 = (i / kKTile) * 8;
       const int key = key0 + kr;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -146,7 +150,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < kDimSteps; ++kk) {
         const uint32_t* kp = reinterpret_cast<const uint32_t*>(
             ks + (nt * 8 + g) * kKStride + kk * 16 + tq * 2);
         mma_bf16(s[nt], qf[kk], kp[0], kp[4]);
@@ -185,7 +189,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
+    for (int nd = 0; nd < kDimTiles; ++nd) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
     }
@@ -198,7 +202,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
                               pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
                               pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
-      for (int nd = 0; nd < 8; ++nd) {
+      for (int nd = 0; nd < kDimTiles; ++nd) {
         const uint32_t* vp = reinterpret_cast<const uint32_t*>(
             vts + (nd * 8 + g) * kVStride + j * 16 + tq * 2);
         mma_bf16(o[nd], pa, vp[0], vp[4]);
@@ -206,7 +210,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // normalise and write the two rows' 64 dims, 2 per 32-bit store
+  // normalise and write the two rows' dims, 2 per 32-bit store
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -219,7 +223,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
     const int r = row0 + i * 8;
     if (r >= T) continue;
 #pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
+    for (int nd = 0; nd < kDimTiles; ++nd) {
       *reinterpret_cast<uint32_t*>(out + base + r * tok + nd * 8 + tq * 2) =
           pack_bf16(o[nd][2 * i] * inv[i], o[nd][2 * i + 1] * inv[i]);
     }
@@ -230,19 +234,29 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
 
 extern "C" {
 
-int flash_head_dim() { return kHeadDim; }
+// 1 where the kernel takes the head dim, else 0.
+int flash_takes_head_dim(int hd) { return hd == 64 || hd == 128; }
 
-// q, k, v, out: [B, T, H, 64] bf16, contiguous, 16-byte aligned.
+// q, k, v, out: [B, T, H, hd] bf16, contiguous, 16-byte aligned; hd 64 or
+// 128.
 int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
-                          void* out, int B, int T, int H, int nv,
+                          void* out, int B, int T, int H, int hd, int nv,
                           void* stream) {
+  if (!flash_takes_head_dim(hd))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kQTile - 1) / kQTile, B * H);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(float(kHeadDim));
-  flash_attn_fwd<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), T, H, nv, scale_log2);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(float(hd));
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    flash_attn_fwd<64><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, T, H, nv,
+                                                  scale_log2);
+  else
+    flash_attn_fwd<128><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, T, H, nv,
+                                                   scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@ a parameter dict with the JAX tree's keys (``tok_emb``, ``pos_emb``,
 the JAX package's npz as it is.  Ported: the full-sequence ``forward``, the
 prefill and the KV-cached greedy decode behind ``generate_from_tokens``
 (the chat LM, ``backend.llm: tpu``) and ``generate`` (the vision-prefix
-caption decode, ``backend.vlm: tpu``).  Training is ROADMAP slice 9.
+caption decode, ``backend.vlm: tpu``), with float or int8 (``Q8``,
+``models/quant8.py``) block matrices.  Training is ROADMAP slice 9.
 
 Numerics follow the JAX package: the residual stream stays float32, layer
 norms run in float32, biases are cast to the compute dtype before they are
@@ -46,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
-from .quant8 import wdot
+from .quant8 import is_q8, wdot
 from .tokenizer import BOS_ID, EOS_ID, VOCAB_SIZE
 
 _DONE_CHECK = 16
@@ -68,6 +69,14 @@ class CaptionerConfig:
     def base(cls) -> "CaptionerConfig":
         """The caption decoder of ``backend.vlm: tpu``."""
         return cls()
+
+    @classmethod
+    def large(cls) -> "CaptionerConfig":
+        """The serving-scale captioner: 24 x 2048, 16 heads, 1.21B
+        parameters (2.4 GB in bfloat16; draw it with
+        ``param_dtype=torch.bfloat16``).  int8 serving
+        (``models/quant8.py``) exists for this width."""
+        return cls(width=2048, layers=24, heads=16)
 
     @classmethod
     def chat(cls) -> "CaptionerConfig":
@@ -131,14 +140,30 @@ def init_params(cfg: CaptionerConfig,
     return p
 
 
+def quantize_params(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
+    """The float matrices (two or more dimensions) of ``params`` cast to
+    ``dtype``; layer-norm and bias vectors, and ``Q8`` leaves, stay as
+    they are.  For a float32 checkpoint that is to be served."""
+    if isinstance(params, dict):
+        return {k: quantize_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [quantize_params(v, dtype) for v in params]
+    if isinstance(params, torch.Tensor) and params.dim() >= 2:
+        return params.to(dtype)
+    return params
+
+
 def serving_params(params: Dict, cfg: CaptionerConfig) -> Dict:
     """``params`` with the product weights and biases (the block
     matrices, their biases and ``head_w``) cast to ``cfg.dtype`` once:
     ``wdot`` and ``_linear`` cast them to it at every call anyway, so the
-    outputs are the same.  Embeddings and layer norms keep their dtype."""
+    outputs are the same.  Embeddings and layer norms keep their dtype,
+    and a quantised (``Q8``) matrix passes through untouched."""
     def cast(k, v):
-        return v.to(cfg.dtype) if k.endswith(("_w", "_b")) else v
-    return {**params, "head_w": params["head_w"].to(cfg.dtype),
+        if is_q8(v) or not k.endswith(("_w", "_b")):
+            return v
+        return v.to(cfg.dtype)
+    return {**params, "head_w": cast("head_w", params["head_w"]),
             "blocks": [{k: cast(k, v) for k, v in bp.items()}
                        for bp in params["blocks"]]}
 
@@ -292,6 +317,16 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
             gstate = grammar_trans[gstate, nxt]
         tok = nxt
     return toks
+
+
+def decode_steps(tokens: torch.Tensor, max_new: int) -> int:
+    """Decode steps ``_decode_loop`` ran for its output ``tokens``
+    [B, max_new]: it stops at the first check after every row emitted EOS
+    (every ``_DONE_CHECK`` steps), or after ``max_new - 1`` steps."""
+    done = (tokens == EOS_ID).all(0).nonzero()
+    first = int(done[0]) if len(done) else max_new
+    check = first + (_DONE_CHECK - 1 - first) % _DONE_CHECK
+    return max(1, min(max_new - 1, check))
 
 
 def prefill_logits(params: Dict, cfg: CaptionerConfig, tokens: torch.Tensor,

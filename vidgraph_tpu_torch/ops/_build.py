@@ -57,9 +57,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cosine_topk_merge_launch.restype = i
     lib.cosine_tile_rows.restype = i
     lib.cosine_max_dim.restype = i
-    lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
-    lib.flash_head_dim.restype = i
+    lib.flash_takes_head_dim.argtypes = [i]
+    lib.flash_takes_head_dim.restype = i
     lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, i, i,
                                              i, f, f, f, f, f, f, p]
     lib.preprocess_frames_launch.restype = i
@@ -71,6 +72,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.short_attention_smem.restype = i
     lib.short_attention_max_smem.restype = i
     lib.short_attention_head_dim.restype = i
+    lib.q8_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.q8_matmul_launch.restype = i
 
 
 def _compile(srcs, out: Path) -> None:

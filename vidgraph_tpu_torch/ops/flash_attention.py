@@ -16,7 +16,8 @@ probability tensor per layer, 4.3 GB at B = 32.  The kernel keeps scores
 and probabilities in registers (FlashAttention's online softmax), so it
 reads q, k, v once per 64-row query tile and writes only the output.
 
-Numerics: q, k, v and the output are bfloat16 [B, T, h, hd]; scores, the
+Numerics: q, k, v and the output are bfloat16 [B, T, h, hd], hd 64 (the
+base and chat widths) or 128 (``CaptionerConfig.large()``); scores, the
 running max and sum and the output are accumulated in float32, with scale
 ``1/sqrt(hd)``.  The unnormalised probabilities are rounded to bfloat16
 before P.V (the tensor-core operand), where the plain version rounds the
@@ -95,9 +96,8 @@ def _cuda_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 nv: int) -> torch.Tensor:
     b, t, h, hd = q.shape
     lib = _build.library()
-    if hd != lib.flash_head_dim():
-        raise ValueError(f"head dim {hd}: the kernel takes "
-                         f"{lib.flash_head_dim()}")
+    if not lib.flash_takes_head_dim(hd):
+        raise ValueError(f"head dim {hd}: the kernel takes 64 or 128")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise ValueError(f"{name} is {x.dtype}; the kernel takes "
@@ -113,7 +113,7 @@ def _cuda_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         _build.check(lib.flash_attn_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, h, nv, torch.cuda.current_stream().cuda_stream),
+            b, t, h, hd, nv, torch.cuda.current_stream().cuda_stream),
             "flash_attn_fwd")
         LAUNCHES["flash_fwd"] += 1
     return out

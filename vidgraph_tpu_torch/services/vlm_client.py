@@ -60,8 +60,12 @@ class TPUVLMClient(VLMClient):
     from ``checkpoint``, an npz in the JAX package's format holding
     ``{"vit": <Flax tree>, "cap": <captioner tree>}``.  ``preprocess``
     (auto | host | device) and ``fast_resize`` pin the preprocessing
-    numerics as in the JAX package.  ``quantize`` (int8 | int8_a8) is
-    ROADMAP slice 7 and raises."""
+    numerics as in the JAX package.  ``quantize`` (int8 | int8_a8)
+    serves the captioner's block matrices and head as int8
+    (``models/quant8.py``), quantised after the checkpoint load, with
+    ``wdot`` in mode ``a16`` or ``a8``; ``param_dtype=torch.bfloat16``
+    draws the matrices in bfloat16, which ``CaptionerConfig.large()``
+    needs."""
 
     def __init__(self, vit_cfg=None, cap_cfg=None, seed: int = 0,
                  max_new: int = 256,
@@ -77,13 +81,9 @@ class TPUVLMClient(VLMClient):
         from ..models.vit import (ViTConfig, init_vision_tower, param_tree,
                                   state_dict_from_tree)
 
-        if quantize:
-            if quantize not in ("int8", "int8_a8"):
-                raise ValueError(f"quantize must be int8|int8_a8, "
-                                 f"got {quantize!r}")
-            raise NotImplementedError(
-                f"vlm.quantize={quantize!r}: int8 serving is ROADMAP slice "
-                "7 (quantized serving) of the PyTorch port")
+        if quantize and quantize not in ("int8", "int8_a8"):
+            raise ValueError(f"quantize must be int8|int8_a8, "
+                             f"got {quantize!r}")
         if preprocess not in ("auto", "host", "device"):
             raise ValueError(f"preprocess must be auto|host|device, "
                              f"got {preprocess!r}")
@@ -108,6 +108,19 @@ class TPUVLMClient(VLMClient):
             self.vit.load_state_dict(state_dict_from_tree(loaded["vit"]))
             self.cap_params = loaded["cap"]
             logger.info("Loaded VLM weights from %s", checkpoint)
+        # Weight-only int8 serving, applied after the checkpoint load.  The
+        # JAX package ignores ``quantize`` under a tensor-parallel serving
+        # mesh; on one card ``serving_mesh()`` is None, so that branch has
+        # no counterpart until the mesh is ported (ROADMAP slice 9).
+        if quantize:
+            import dataclasses
+
+            from ..models.quant8 import quantize_captioner_params
+
+            self.cap_params = quantize_captioner_params(self.cap_params)
+            self.cap_cfg = dataclasses.replace(
+                self.cap_cfg, qmode="a8" if quantize == "int8_a8" else "a16")
+        self.quantize = quantize
         # the matrices cast to the compute dtype once (same outputs)
         self._serve_params = serving_params(self.cap_params, self.cap_cfg)
         self.max_new = max_new

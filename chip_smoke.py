@@ -114,7 +114,45 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    tokens/s of the four modes at B = 8 and 32
    (``scripts/profile_torch_int8_decode.py::bench_decode``).  (v) The
    CLI's ``vlm`` with ``vlm.quantize: int8`` at ``base()`` width on phase
-   11's frame source.
+   11's frame source;
+14. the FlashAttention backward kernels (``flash_bwd_delta``,
+   ``flash_bwd_dkv``, ``flash_bwd_dq``) and the forward's log-sum-exp
+   against their plain versions (``attention_bwd_ref``, ``lse_ref``; one
+   batch row at a time, so that the plain [h, T, T] tensors stay small) at
+   the shapes the training paths launch: B 8 x T 3080 and B 16 x T 1544 at
+   8 heads x 64 (``CaptionerConfig.chat()``, both buckets of the instruct
+   trainer), B 16 x T 1032 at 16 x 64 (the mid-scale config), T 1033 at
+   16 x 128, and T 40 and 1033 with nv 0 and 8: dq, dk, dv within
+   ``TOL_ABS + TOL_REL * |plain|`` and ``BWD_REL_FRO`` of the plain
+   gradient's norm, two runs equal bit for bit, and a planted fault (the
+   plain backward without ``delta``) outside the tolerance.  Then
+   CUDA-event medians at the three training shapes: the forward with its
+   residual, each backward kernel, the plain backward, and
+   ``F.scaled_dot_product_attention`` forward + backward under autograd
+   with the boolean prefix mask (the yardstick, never called by the port);
+15. training at full width through the trainers' ``main``: (a)
+   ``scripts/train_torch_instruct_lm.py`` at ``CaptionerConfig.chat()``
+   width, ``--seq-len 3072 --batch 8 --flash``, 12 steps, on the golden
+   vlm output plus synthetic captions with the dataset counts of
+   ``--smoke``: between a reset and a read of the counts, the forward and
+   both backward kernels launch once per layer per step (the forward also
+   for the held-out evaluations and the eval's prefills) and the plain
+   attention serves nothing; the held-out loss is finite and lower at the
+   end; the first batch's loss and the gradient of every leaf with the
+   kernels against the masked einsum with remat from the same weights
+   (max |diff| / max |plain| < ``TRAIN_GRAD_TOL`` per leaf), and a planted
+   fault (the attention output cut from the graph, as it was before the
+   kernels had a backward) past it; the saved ``instruct_lm.npz`` then
+   serves one completion through ``make_chat_client("tpu")``.  (b)
+   ``scripts/train_torch_midscale.py --flash --steps 12`` at the 204M
+   config (batch 16 x 1024), then 4 steps with the masked einsum and
+   remat: step time, tokens/s, MFU against 989 TFLOP/s, peak memory, the
+   bf16 round trip.  (c) ``models/train.py::TrainState`` at
+   ``ViTConfig.b32()`` + ``CaptionerConfig.base()`` width, B 8, 3 steps on
+   one batch: the loss falls.
+
+``--phases 14,15`` runs only the named phases (with the build): a partial
+run prints no kernels record and no ``ok`` line.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Each
@@ -180,6 +218,14 @@ Q8_COSINE_MIN = 0.998
 # T = 40) and with the plain attention, 24 layers deep: 0.031 apart at a
 # logit scale of 3.4 on an H100 80GB HBM3 (700 W).
 LARGE_FLASH_LOGIT_TOL = 0.1
+# phase 14: ||kernel - plain||_F <= BWD_REL_FRO x ||plain||_F per gradient
+# (the gradients of late rows are far below TOL_ABS, so the elementwise
+# tolerance alone would pass much there)
+BWD_REL_FRO = 2e-2
+# phase 15: per-leaf gradients of the training loss with the kernels and
+# with the masked einsum + remat, max |diff| / max |plain| (the limit of the
+# JAX package's own flash-vs-einsum gradient test on its chip)
+TRAIN_GRAD_TOL = 0.05
 # H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 _TIKTOKEN_BLOCK = ('raise ImportError("tiktoken is kept out of this run: its '
@@ -1583,8 +1629,376 @@ def phase_quantized(seed: int, card: str) -> dict:
             "decode": rates}
 
 
+# ----------------------------------------------------------------- phase 14
+# (B, T, heads, hd, nv); the first three are the training paths' shapes
+BWD_SHAPES = [(8, 3080, 8, 64, 8), (16, 1544, 8, 64, 8),
+              (16, 1032, 16, 64, 8), (2, 1033, 16, 128, 8),
+              (2, 1033, 16, 128, 0), (2, 1033, 8, 64, 8),
+              (2, 1033, 8, 64, 0), (3, 40, 8, 64, 8), (3, 40, 8, 64, 0),
+              (3, 40, 16, 128, 8)]
+BWD_TIMED = 3
+
+
+def visible_pairs(t: int, nv: int) -> int:
+    """(query, key) pairs of the prefix-causal mask over t tokens."""
+    return sum(min(max(r, nv - 1), t - 1) + 1 for r in range(t))
+
+
+def bwd_errors(fa, q, k, v, out, lse, do, grads, nv, use_delta=True) -> dict:
+    """The kernels' (dq, dk, dv) against ``attention_bwd_ref``, one batch
+    row at a time: max |err|, the worst excess over ``TOL_ABS + TOL_REL *
+    |plain|``, and the worst Frobenius error over the plain norm."""
+    err = fro = 0.0
+    excess = float("-inf")
+    for i in range(q.shape[0]):
+        row = slice(i, i + 1)
+        refs = fa.attention_bwd_ref(q[row], k[row], v[row], out[row],
+                                    lse[row], do[row], nv, use_delta)
+        for got, ref in zip(grads, refs):
+            got = got[row].float()
+            ref = ref.to(torch.bfloat16).float()
+            diff = (got - ref).abs()
+            err = max(err, float(diff.max()))
+            excess = max(excess, float(
+                (diff - fa.TOL_ABS - fa.TOL_REL * ref.abs()).max()))
+            fro = max(fro, float(diff.norm())
+                      / max(float(ref.norm()), 1e-12))
+    return {"max_abs_err": err, "excess": excess, "rel_fro": fro}
+
+
+def library_sdpa_train(q, k, v, do, mask) -> dict:
+    """The yardstick of the training attention, never called by the port:
+    ``F.scaled_dot_product_attention`` forward and backward under autograd
+    with the boolean prefix mask; medians of the forward alone and of the
+    forward + backward, and the device kernels PyTorch chose."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms
+
+    ql, kl, vl = (z.detach().clone().requires_grad_(True) for z in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+            attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (ql, kl, vl), do.transpose(1, 2))
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(fwd, reps=10)
+    both_ms = cuda_ms(fwd_bwd, reps=10)
+    return {"library_fwd_ms": fwd_ms, "library_fwd_bwd_ms": both_ms,
+            "library_bwd_ms": both_ms - fwd_ms,
+            "library_kernels": device_kernels(fwd_bwd)}
+
+
+def phase_flash_backward(seed: int, card: str) -> dict:
+    from vidgraph_tpu_torch.core.profiling import cuda_ms
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed + 14)
+    rows = {}
+    planted = None
+    for n, (b, t, h, hd, nv) in enumerate(BWD_SHAPES):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (b, t, h, hd), dtype=np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(4))
+
+        def grads():
+            ql, kl, vl = (z.detach().requires_grad_(True) for z in (q, k, v))
+            out = fa.flash_attention(ql, kl, vl, nv)
+            assert out.grad_fn is not None, "the output is cut from the graph"
+            return out.detach(), torch.autograd.grad(out, (ql, kl, vl), do)
+
+        out, first = grads()
+        _, second = grads()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, c) for a, c in zip(first, second))
+        lse = fa._cuda_flash(q, k, v, nv, with_lse=True)[1]
+        delta = fa._cuda_delta(out, do)
+        torch.cuda.synchronize()
+        lse_err = max(float((lse[i] - fa.lse_ref(q[i:i + 1], k[i:i + 1],
+                                                 nv)[0]).abs().max())
+                      for i in range(b))
+        delta_err = float((delta - (do.float() * out.float()).sum(-1)
+                           .transpose(1, 2)).abs().max())
+        row = {**bwd_errors(fa, q, k, v, out, lse, do, first, nv),
+               "bit_equal": same_bits, "lse_err": lse_err,
+               "delta_err": delta_err}
+        name = f"b{b}_T{t}_h{h}x{hd}_nv{nv}"
+        assert all(bool(torch.isfinite(g).all()) for g in first), name
+        assert row["excess"] <= 0 and row["rel_fro"] <= BWD_REL_FRO, \
+            f"flash backward {name}: {row}"
+        assert same_bits, f"flash backward {name}: two runs differ"
+        assert lse_err <= 2e-3 and delta_err <= 1e-3 * max(
+            1.0, float(delta.abs().max())), f"{name}: {row}"
+        if planted is None and t <= 1100:
+            bad = bwd_errors(fa, q, k, v, out, lse, do, first, nv,
+                             use_delta=False)
+            assert bad["excess"] > 0 and bad["rel_fro"] > BWD_REL_FRO, \
+                f"the backward without delta passes at {name}: {bad}"
+            planted = {"shape": name, **bad}
+        if n < BWD_TIMED:
+            pairs = visible_pairs(t, nv)
+            tensor = b * t * h * hd * 2                 # one bf16 tensor
+            vec = b * h * t * 4                         # lse or delta
+            product = 2.0 * b * h * hd * pairs          # one T x T product
+            mask = fa.prefix_causal_mask(t, nv, q.device)
+            row.update({
+                "fwd_lse_ms": cuda_ms(lambda: fa._cuda_flash(
+                    q, k, v, nv, with_lse=True)),
+                "delta_ms": cuda_ms(lambda: fa._cuda_delta(out, do)),
+                "dkv_ms": cuda_ms(lambda: fa._cuda_dkv(q, k, v, do, lse,
+                                                       delta, nv)),
+                "dq_ms": cuda_ms(lambda: fa._cuda_dq(q, k, v, do, lse,
+                                                     delta, nv)),
+                "plain_delta_ms": cuda_ms(
+                    lambda: (do.float() * out.float()).sum(-1)
+                    .transpose(1, 2).contiguous()),
+                "bound": {
+                    "fwd": bound(4 * tensor + vec, 2 * product, BF16_FLOPS),
+                    "delta": bound(2 * tensor + vec, 2.0 * b * t * h * hd,
+                                   F32_FLOPS),
+                    # the least each function needs alone: S, dP and its
+                    # own outputs' products (4 for dkv, 3 for dq)
+                    "dkv": bound(6 * tensor + 2 * vec, 4 * product,
+                                 BF16_FLOPS),
+                    "dq": bound(5 * tensor + 2 * vec, 3 * product,
+                                BF16_FLOPS),
+                    # one pass that shares S and dP: 5 products
+                    "bwd_shared": bound(8 * tensor + vec, 5 * product,
+                                        BF16_FLOPS)}})
+            del first, second
+            torch.cuda.empty_cache()
+            row["plain_bwd_ms"] = cuda_ms(
+                lambda: fa.attention_bwd_ref(q, k, v, out, lse, do, nv),
+                reps=3, warmup=1)
+            torch.cuda.empty_cache()
+            row.update(library_sdpa_train(q, k, v, do, mask))
+        rows[name] = row
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    log(f"phase 14: flash backward kernels within {fa.TOL_ABS} + "
+        f"{fa.TOL_REL} x |plain| and {BWD_REL_FRO} of the plain norm, two "
+        f"runs bit-equal; planted fault (no delta) {json.dumps(planted)}; "
+        f"times on {card} (median, ms): {json.dumps(rows)}")
+    return {"rows": rows, "planted": planted}
+
+
+# ----------------------------------------------------------------- phase 15
+def load_script(name: str):
+    """A trainer script of ``scripts/`` as a module (its ``main(argv)`` is
+    the entry point a user runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def training_corpus(tmp: Path, seed: int) -> Path:
+    """The golden vlm output plus synthetic captions, as a vlm_output."""
+    from vidgraph_tpu_torch.models import instruct_data
+
+    rng = random.Random(seed)
+    results = json.loads((ROOT / "tests/golden/vlm_output_golden.json")
+                         .read_text())["results"]
+    results = results + [
+        {"content": " ".join(instruct_data.synth_sentence(rng)
+                             for _ in range(4))} for _ in range(10)]
+    path = tmp / "train_corpus.json"
+    path.write_text(json.dumps({"results": results}))
+    return path
+
+
+def leaf_grads(mod, params, cfg, toks, plens, remat, flash) -> tuple:
+    """(loss, {leaf: gradient or None}) of the instruct loss."""
+    from vidgraph_tpu_torch.models.checkpoint import tree_leaves
+
+    for _, p in tree_leaves(params):
+        p.grad = None
+    loss = mod.instruct_loss(params, cfg, toks, plens, remat, flash)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {k: p.grad for k, p in tree_leaves(params)}
+
+
+def worst_leaf(got: dict, ref: dict) -> tuple:
+    """(leaf, max |diff| / max |ref|) of the worst leaf; a missing
+    gradient counts as zeros."""
+    worst = ("", 0.0)
+    for key, r in ref.items():
+        g = got[key] if got[key] is not None else torch.zeros_like(r)
+        rel = float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+        if rel > worst[1]:
+            worst = (key, rel)
+    return worst
+
+
+def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     init_params)
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.services.llm_client import make_chat_client
+
+    mod = load_script("train_torch_instruct_lm")
+    out = tmp / "instruct_lm.npz"
+    steps = 12
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    rec = mod.main([
+        "--corpus", str(training_corpus(tmp, seed)), "--steps", str(steps),
+        "--batch", "8", "--seq-len", "3072", "--flash", "--seed", str(seed),
+        "--n-questions", "4", "--n-pre", "12", "--n-synth-answers", "6",
+        "--n-instr", "4", "--n-consol", "4", "--n-copy", "4",
+        "--eval-count", "4", "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dict(fa.LAUNCHES), fa.REF_CALLS
+    layers = rec["layers"]
+    fwd_want = layers * (steps + rec["held_evals"] * rec["held_buckets"]
+                         + rec["held_examples"])
+    assert rec["attention"] == "flash" and rec["remat"] is False, rec
+    assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_delta"] == layers * steps, counts
+    assert counts["flash_fwd"] == fwd_want, (counts, fwd_want)
+    assert plain == 0, f"the plain attention served {plain} calls"
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    assert np.isfinite(rec["held_last"]) and \
+        rec["held_last"] < rec["held_first"], \
+        (rec["held_first"], rec["held_last"])
+    assert [8, 3072] in rec["batch_shapes"], rec["batch_shapes"]
+
+    # the first batch from the seed weights: kernels against einsum + remat
+    cfg = CaptionerConfig.chat()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=torch.device("cuda"), requires_grad=True)
+    toks, plens = (torch.as_tensor(a, device="cuda")
+                   for a in rec["first_batch"])
+    loss_f, g_flash = leaf_grads(mod, params, cfg, toks, plens, False, True)
+    assert abs(loss_f - rec["losses"][0]) < 1e-3, (loss_f, rec["losses"][0])
+    loss_e, g_plain = leaf_grads(mod, params, cfg, toks, plens, True, False)
+    leaf, rel = worst_leaf(g_flash, g_plain)
+    assert abs(loss_f - loss_e) < 2e-2 and rel < TRAIN_GRAD_TOL, \
+        f"gradients with the kernels: {leaf} differs by {rel} of its max"
+    # planted fault: the attention output cut from the graph
+    real = fa.FlashAttentionFn.apply
+    fa.FlashAttentionFn.apply = staticmethod(
+        lambda q, k, v, nv: fa._cuda_flash(q.detach(), k.detach(),
+                                           v.detach(), nv)[0])
+    try:
+        _, g_cut = leaf_grads(mod, params, cfg, toks, plens, False, True)
+    finally:
+        fa.FlashAttentionFn.apply = real
+    cut_leaf, cut_rel = worst_leaf(g_cut, g_plain)
+    assert cut_rel > TRAIN_GRAD_TOL, \
+        f"a gradient cut at the attention passes the check ({cut_rel})"
+    del params, g_flash, g_plain, g_cut
+    torch.cuda.empty_cache()
+
+    # the trained checkpoint serves through backend.llm: tpu
+    fa.reset_counts()
+    client = make_chat_client("tpu", checkpoint_path=str(out))
+    text = asyncio.run(client.complete(
+        "TEXT TO ANALYSE:\nA red square moves left.\n\nTRIPLET LINES:\n",
+        max_tokens=64))
+    assert isinstance(text, str) and client.MAX_NEW == 1024
+    assert fa.LAUNCHES["flash_fwd"] == layers and fa.REF_CALLS == 0
+    del client
+    torch.cuda.empty_cache()
+    timed = rec["losses"]
+    res = {"steps": steps, "wall_s": wall, "launches": counts,
+           "flash_fwd_expected": fwd_want, "batch_shapes": rec["batch_shapes"],
+           "first_loss": timed[0], "last_loss": timed[-1],
+           "held_first": rec["held_first"], "held_last": rec["held_last"],
+           "grad_check": {"loss_flash": loss_f, "loss_einsum_remat": loss_e,
+                          "worst_leaf": leaf, "worst_rel": rel,
+                          "planted_leaf": cut_leaf, "planted_rel": cut_rel,
+                          "tol": TRAIN_GRAD_TOL},
+           "served_chars": len(text), "eval": rec["eval"]}
+    log(f"phase 15a: instruct trainer at CaptionerConfig.chat() width, "
+        f"8 x 3072, flash, on {card}: {json.dumps(res)}")
+    return res
+
+
+def phase_train_midscale(seed: int, card: str, tmp: Path) -> dict:
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+
+    mod = load_script("train_torch_midscale")
+    corpus = str(training_corpus(tmp, seed))
+    runs = {}
+    for name, argv, steps in (("flash", ["--flash"], 12),
+                              ("einsum_remat", [], 4)):
+        fa.reset_counts()
+        torch.cuda.empty_cache()
+        rec = mod.main(["--corpus", corpus, "--steps", str(steps), "--seed",
+                        str(seed), "--out", str(tmp / f"mid_{name}.npz"),
+                        *argv])
+        torch.cuda.synchronize()
+        assert rec["bf16_roundtrip_exact"], rec
+        assert all(np.isfinite(rec["losses"])), rec["losses"]
+        assert rec["config"] == "16x1024" and rec["batch"] == 16 and \
+            rec["seq_len"] == 1024, rec
+        runs[name] = {**{k: rec[k] for k in (
+            "attention", "remat", "params_m", "step_ms", "tokens_per_sec",
+            "train_mfu", "mfu_peak", "peak_memory_gb", "first_loss",
+            "last_loss", "bf16_roundtrip_exact", "decode_sample")},
+            "launches": dict(fa.LAUNCHES), "plain_calls": fa.REF_CALLS}
+    fl, ein = runs["flash"], runs["einsum_remat"]
+    assert fl["attention"] == "flash" and fl["remat"] is False, fl
+    assert ein["attention"] == "einsum" and ein["remat"] is True, ein
+    assert fl["last_loss"] < fl["first_loss"], fl
+    # 16 layers x 12 steps, plus the decode sample's prefill
+    assert fl["launches"]["flash_bwd_dkv"] == fl["launches"][
+        "flash_bwd_dq"] == 16 * 12, fl["launches"]
+    assert fl["launches"]["flash_fwd"] == 16 * 12 + 16, fl["launches"]
+    assert fl["plain_calls"] == 0 and ein["launches"]["flash_fwd"] == 0
+    log(f"phase 15b: mid-scale trainer, 204M, 16 x 1024, on {card}: "
+        f"{json.dumps(runs)}")
+    return runs
+
+
+def phase_train_state(seed: int, card: str) -> dict:
+    from vidgraph_tpu_torch.models.captioner import CaptionerConfig
+    from vidgraph_tpu_torch.models.tokenizer import batch_encode
+    from vidgraph_tpu_torch.models.train import TrainState
+    from vidgraph_tpu_torch.models.vit import ViTConfig
+
+    state = TrainState.create(
+        ViTConfig.b32(), CaptionerConfig.base(), torch.device("cuda"),
+        learning_rate=3e-4, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed + 15)
+    images = rng.standard_normal((8, 224, 224, 3), dtype=np.float32)
+    tokens = batch_encode(["The scene shows a red object on a dark "
+                           "background."] * 8, 96)
+    batch = state.shard_batch(images, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(3):
+        state, loss = state.step(*batch)
+        losses.append(loss)
+    step_s = (time.perf_counter() - t0) / 3
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    res = {"losses": losses, "step_ms": step_s * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"phase 15c: TrainState, ViT-B/32 + CaptionerConfig.base(), B 8, "
+        f"on {card}: {json.dumps(res)}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_training(seed: int, card: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        return {"instruct": phase_train_instruct(seed, card, tmp),
+                "midscale": phase_train_midscale(seed, card, tmp),
+                "train_state": phase_train_state(seed, card)}
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
-                  quant) -> dict:
+                  quant, bwd, training) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -1601,6 +2015,17 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
+    inst = training["instruct"]["launches"]
+    mid = training["midscale"]["flash"]["launches"]
+    bwd_rows = bwd["rows"]
+    brow = bwd_rows["b8_T3080_h8x64_nv8"]
+    bwd_src = "vidgraph_tpu_torch/csrc/flash_attention_bwd.cu"
+    # the call whose custom_vjp runs the TPU backward kernels, and their
+    # lines in JAX's own source
+    bwd_site = "vidgraph_tpu/models/captioner.py:191"
+    jax_flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    bwd_timed = ("B=8, T=3080, 8 heads x 64, bf16, nv=8 (the instruct "
+                 "trainer's long bucket)")
     return {"kernels": [
         {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
          "source": src, "replaces": replaces,
@@ -1630,8 +2055,13 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "source": "vidgraph_tpu_torch/csrc/flash_attention.cu",
          "replaces": "vidgraph_tpu/models/captioner.py:165",
          "launches": (chat["kg"]["flash"] + chat["benchmark"]["flash"]
-                      + sum(c["flash"] for c in vision_counts)),
+                      + sum(c["flash"] for c in vision_counts)
+                      + inst["flash_fwd"] + mid["flash_fwd"]),
          "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+         "lse_max_abs_err": max(r["lse_err"] for r in bwd_rows.values()),
+         "train_ms": brow["fwd_lse_ms"],
+         "train_bound_ms": brow["bound"]["fwd"]["bound_ms"],
+         "train_timed": "with the log-sum-exp written; " + bwd_timed,
          "ms": b32["kernel_ms"], "plain_ms": b32["plain_ms"],
          "library_ms": b32["library_ms"],
          "library_backends": b32["library_backends"],
@@ -1673,6 +2103,35 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "bound_ms": q8row["bound_ms"], "bound_by": q8row["bound_by"],
          "timed": "M=32, K=2048, N=8192 (fc1 of CaptionerConfig.large()), "
                   "20 copies of the weights in turn"},
+        {"name": "flash_bwd_delta", "route": "cuda", "source": bwd_src,
+         "replaces": bwd_site, "replaces_in_jax": jax_flash + ":273",
+         "launches": inst["flash_bwd_delta"] + mid["flash_bwd_delta"],
+         "max_abs_err": max(r["delta_err"] for r in bwd_rows.values()),
+         "ms": brow["delta_ms"], "plain_ms": brow["plain_delta_ms"],
+         "library_ms": None, **brow["bound"]["delta"], "timed": bwd_timed},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
+         "replaces": bwd_site, "replaces_in_jax": jax_flash + ":1121",
+         "launches": inst["flash_bwd_dkv"] + mid["flash_bwd_dkv"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+         "max_rel_fro": max(r["rel_fro"] for r in bwd_rows.values()),
+         "ms": brow["dkv_ms"], "plain_ms": brow["plain_bwd_ms"],
+         "library_ms": brow["library_bwd_ms"],
+         "library_kernels": brow["library_kernels"],
+         **brow["bound"]["dkv"],
+         "timed": bwd_timed + "; plain_ms and library_ms are of the whole "
+                  "backward (dq, dk and dv): attention_bwd_ref, and SDPA's "
+                  "forward + backward less its forward"},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
+         "replaces": bwd_site, "replaces_in_jax": jax_flash + ":1456",
+         "launches": inst["flash_bwd_dq"] + mid["flash_bwd_dq"],
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
+         "max_rel_fro": max(r["rel_fro"] for r in bwd_rows.values()),
+         "ms": brow["dq_ms"], "plain_ms": brow["plain_bwd_ms"],
+         "library_ms": brow["library_bwd_ms"],
+         "library_kernels": brow["library_kernels"],
+         **brow["bound"]["dq"],
+         "timed": bwd_timed + "; plain_ms and library_ms as for "
+                  "flash_bwd_dkv"},
     ]}
 
 
@@ -1681,6 +2140,9 @@ def main() -> int:
         return cli_with_counts(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="",
+                    help="development: run only these of phases 14,15 "
+                         "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1705,6 +2167,20 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
+    only = ({int(x) for x in args.phases.split(",")} if args.phases
+            else None)
+    if only is not None and not only <= {14, 15}:
+        ap.error("--phases takes 14 and 15")
+    if only is not None:
+        # a partial run, for development: no kernels record, no ok line
+        if 14 in only:
+            phase_flash_backward(args.seed, card)
+        if 15 in only:
+            phase_training(args.seed, card)
+        assert "jax" not in sys.modules, "the port's run imported jax"
+        log(f"phases {sorted(only)} done at {time.perf_counter() - t0:.1f} s "
+            f"(partial run)")
+        return 0
     kern = phase_kernels(tc, args.seed, card)
     main_path = phase_main_path(tc, args.seed)
     phase_cli()
@@ -1719,16 +2195,20 @@ def main() -> int:
     q8k = phase_q8_matmul(args.seed, card)
     quant = phase_quantized(args.seed, card)
     log(f"phases 1-13 done at {time.perf_counter() - t0:.1f} s")
+    bwd = phase_flash_backward(args.seed, card)
+    training = phase_training(args.seed, card)
+    log(f"phases 1-15 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
-                           q8k, quant)
+                           q8k, quant, bwd, training)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
         "retrieval_p95_ms": main_path["p95_ms"],
         "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits,
         "preprocess_ms": pre, "short_attention_ms": short,
-        "vision": vision, "q8_matmul_ms": q8k, "quantized": quant})
+        "vision": vision, "q8_matmul_ms": q8k, "quantized": quant,
+        "flash_backward": bwd, "training": training})
     print(json.dumps(record))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -62,8 +62,8 @@ def test_configs_and_param_tree_match():
     jp = jcap.init_params(J_TINY, seed=0)
     tp = tcap.init_params(T_TINY, torch.Generator().manual_seed(0))
     jl = jax.tree_util.tree_leaves_with_path(jp)
-    from vidgraph_tpu_torch.models.checkpoint import _leaves
-    tl = dict(_leaves(tp))
+    from vidgraph_tpu_torch.models.checkpoint import tree_leaves
+    tl = dict(tree_leaves(tp))
     assert len(jl) == len(tl)
     assert sum(t.numel() for t in tl.values()) == T_TINY.num_params
     for path, leaf in jl:

@@ -135,8 +135,8 @@ def test_checkpoint_and_sidecar(tmp_path, clients):
     client = tllm.TPUChatClient(cfg=TCFG, checkpoint_path=str(path))
     assert client.MAX_NEW == 32
     assert client.max_prompt_bytes == 300 - 2 - 32 - 2
-    loaded = dict(tck._leaves(client.params))
-    for k, a in tck._leaves(tc.params):
+    loaded = dict(tck.tree_leaves(client.params))
+    for k, a in tck.tree_leaves(tc.params):
         assert torch.equal(a, loaded[k]), k
 
 

@@ -57,7 +57,7 @@ def test_jax_npz_loads_bit_exact(tmp_path):
     jp = _mixed_jax_params()
     path = jck.save_params(jp, str(tmp_path / "j.npz"))
     tp = tck.load_params(_template(_keep_matrices_bf16), path)
-    flat_t = dict(tck._leaves(tp))
+    flat_t = dict(tck.tree_leaves(tp))
     flat_j = _flat_jax(jp)
     assert set(flat_t) == set(flat_j)
     assert any(t.dtype == torch.bfloat16 for t in flat_t.values())
@@ -75,7 +75,7 @@ def test_port_npz_loads_bit_exact_in_jax(tmp_path):
     template = jcap.init_params(jcap.CaptionerConfig.tiny(), seed=0,
                                 param_dtype=jnp.bfloat16)
     jp = jck.load_params(template, path)
-    flat_t = dict(tck._leaves(tp))
+    flat_t = dict(tck.tree_leaves(tp))
     for key, leaf in _flat_jax(jp).items():
         assert _bits(leaf) == _bits(flat_t[key]), key
 
@@ -85,10 +85,10 @@ def test_port_roundtrip_and_dtype_cast(tmp_path):
                           param_dtype=torch.bfloat16)
     path = tck.save_params(tp, str(tmp_path / "t.npz"))
     back = tck.load_params(tp, path)
-    for (k, a), (_, b) in zip(tck._leaves(tp), tck._leaves(back)):
+    for (k, a), (_, b) in zip(tck.tree_leaves(tp), tck.tree_leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b), k
     as_f32 = tck.load_params(_template(lambda t: torch.float32), path)
-    for (k, a), (_, b) in zip(tck._leaves(tp), tck._leaves(as_f32)):
+    for (k, a), (_, b) in zip(tck.tree_leaves(tp), tck.tree_leaves(as_f32)):
         assert b.dtype == torch.float32 and torch.equal(a.float(), b), k
 
 

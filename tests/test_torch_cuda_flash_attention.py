@@ -1,5 +1,6 @@
 """The hand-written CUDA FlashAttention forward (``csrc/flash_attention.cu``)
-against its plain PyTorch version, on the card.  Marked ``cuda``: they skip
+and backward (``csrc/flash_attention_bwd.cu``) against their plain PyTorch
+versions, on the card.  Marked ``cuda``: they skip
 on a host without one.  Run them there with
 ``python -m pytest tests/test_torch_cuda_flash_attention.py``.
 
@@ -8,7 +9,12 @@ Tolerance: ``|kernel - plain| <= TOL_ABS + TOL_REL * |plain|`` (1e-2 and
 probabilities to bfloat16 before P.V where the plain version rounds the
 normalised ones, and sums in another order, so the two differ by bf16
 rounding: about one unit in the last place of the output, for v of unit
-scale (the error grows with |v|, not with |output|).
+scale (the error grows with |v|, not with |output|).  The backward
+kernels round P and dS to bfloat16 as tensor-core operands and dq, dk, dv
+once on the way out, where ``attention_bwd_ref`` is float32 throughout:
+the same tolerance against the plain gradients rounded to bfloat16, and,
+since the gradients of late rows are far below ``TOL_ABS``, also a
+Frobenius error of at most ``BWD_REL_FRO`` of the gradient's norm.
 """
 import numpy as np
 import pytest
@@ -17,6 +23,8 @@ import torch
 from vidgraph_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
+
+BWD_REL_FRO = 2e-2     # ||kernel - plain||_F / ||plain||_F, per gradient
 
 
 @pytest.fixture(scope="module")
@@ -83,9 +91,10 @@ def test_launch_counts_and_no_plain_calls(dev):
     q, k, v = _qkv(1, 100, 2, 0, dev)
     fa.reset_counts()
     fa.flash_attention(q, k, v, 8)
-    assert fa.LAUNCHES == {"flash_fwd": 1} and fa.REF_CALLS == 0
+    none = {"flash_bwd_delta": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 0
     fa.flash_attention(q, k, v, 8, flash=False)
-    assert fa.LAUNCHES == {"flash_fwd": 1} and fa.REF_CALLS == 1
+    assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 1
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
@@ -100,3 +109,164 @@ def test_kernel_rejects_what_it_cannot_take(dev):
                            v[..., :32].contiguous(), 8)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v[:, :50], 8)
+
+
+# ------------------------------------------------------------- the backward
+def _grads(q, k, v, nv, do):
+    """(out, lse, (dq, dk, dv)) through ``FlashAttentionFn``."""
+    q, k, v = (z.detach().requires_grad_(True) for z in (q, k, v))
+    out = fa.flash_attention(q, k, v, nv)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    return out.detach(), grads
+
+
+def _assert_backward_close(b, t, h, hd, nv, dev, qk_scale=1.0):
+    q, k, v = _qkv(b, t, h, 31 * t + nv + hd, dev, qk_scale, hd)
+    do = _qkv(b, t, h, t + 5, dev, hd=hd)[2]
+    out, grads = _grads(q, k, v, nv, do)
+    lse = fa._cuda_flash(q, k, v, nv, with_lse=True)[1]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, fa.lse_ref(q, k, nv), atol=2e-3, rtol=0)
+    refs = fa.attention_bwd_ref(q, k, v, out, lse, do, nv)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        got, ref = got.float(), ref.to(torch.bfloat16).float()
+        assert torch.isfinite(got).all(), name
+        err = (got - ref).abs()
+        # TOL_ABS is for operands of unit scale: dS is rounded to bfloat16
+        # before it multiplies k (for dq) and q (for dk), so that error
+        # grows with their scale, as the forward's grows with |v|
+        tol_abs = fa.TOL_ABS * (1.0 if name == "dv" else qk_scale)
+        excess = err - (tol_abs + fa.TOL_REL * ref.abs())
+        assert float(excess.max()) <= 0, (name, float(err.max()))
+        # rms error against rms gradient; the floor is for a gradient that
+        # is zero but for rounding (dq and dk at T = 1, where P = 1)
+        slack = BWD_REL_FRO * float(ref.norm()) + 1e-3 * ref.numel() ** 0.5
+        assert float(err.norm()) <= slack, (name, float(err.norm()), slack)
+
+
+@pytest.mark.parametrize("nv", [0, 8])
+@pytest.mark.parametrize("t", [1, 9, 40, 65, 1033])
+@pytest.mark.parametrize("h,hd", [(8, 64), (4, 128)])
+def test_backward_matches_plain(dev, h, hd, t, nv):
+    _assert_backward_close(2, t, h, hd, nv, dev)
+
+
+@pytest.mark.parametrize("b,t,h,nv", [(1, 200, 2, 100), (1, 64, 2, 64),
+                                      (1, 130, 2, 70)])
+def test_backward_with_a_long_prefix(dev, b, t, h, nv):
+    """A prefix longer than a tile: key tiles above the diagonal are still
+    visible to the rows below nv."""
+    _assert_backward_close(b, t, h, 64, nv, dev)
+
+
+def test_backward_large_scores(dev):
+    """Scores in the hundreds: the probabilities are recomputed against
+    the saved log-sum-exp without overflow."""
+    _assert_backward_close(2, 300, 4, 64, 8, dev, qk_scale=4.0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_two_runs_give_the_same_bits(dev, hd):
+    q, k, v = _qkv(2, 1033, 4, 3, dev, hd=hd)
+    do = _qkv(2, 1033, 4, 4, dev, hd=hd)[2]
+    first = _grads(q, k, v, 8, do)[1]
+    second = _grads(q, k, v, 8, do)[1]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_backward_launch_counts(dev):
+    q, k, v = _qkv(1, 100, 2, 0, dev)
+    fa.reset_counts()
+    _grads(q, k, v, 8, torch.ones_like(q))
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_delta": 1,
+                           "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    assert fa.REF_CALLS == 0
+    fa.reset_counts()
+    with torch.no_grad():
+        out = fa.flash_attention(q.requires_grad_(True), k, v, 8)
+    assert out.grad_fn is None and fa.LAUNCHES["flash_fwd"] == 1
+
+
+def test_backward_without_delta_is_caught(dev):
+    """The planted fault of the smoke run: the plain backward without
+    ``delta`` lies outside the tolerance that the kernels meet."""
+    q, k, v = _qkv(2, 200, 4, 11, dev)
+    do = _qkv(2, 200, 4, 12, dev)[2]
+    out, grads = _grads(q, k, v, 8, do)
+    lse = fa._cuda_flash(q, k, v, 8, with_lse=True)[1]
+    bad = fa.attention_bwd_ref(q, k, v, out, lse, do, 8, use_delta=False)
+    err = (grads[0].float() - bad[0]).abs()
+    assert float((err - fa.TOL_ABS - fa.TOL_REL * bad[0].abs()).max()) > 0
+
+
+def test_backward_rejects_what_it_cannot_take(dev):
+    q, k, v = _qkv(1, 100, 2, 0, dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.float().requires_grad_(True), k.float(),
+                           v.float(), 8)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).requires_grad_(True),
+                           k.transpose(1, 2), v.transpose(1, 2), 8)
+    out, lse = fa._cuda_flash(q, k, v, 8, with_lse=True)
+    with pytest.raises(ValueError):
+        fa._cuda_flash_bwd(q, k, v, out, lse, out.float(), 8)
+    with pytest.raises(ValueError):
+        fa._cuda_flash_bwd(q, k, v, out, lse.transpose(1, 2), out, 8)
+
+
+# ------------------------------------------------ the kernels in the model
+def _leaf_grads(flash, remat=False):
+    from vidgraph_tpu_torch.models import captioner as tcap
+    from vidgraph_tpu_torch.models import checkpoint as tck
+
+    cfg = tcap.CaptionerConfig(width=128, layers=2, heads=2, vision_dim=32,
+                               num_vision_tokens=4, max_len=128)
+    params = tcap.init_params(cfg, torch.Generator().manual_seed(3),
+                              device=torch.device("cuda"),
+                              requires_grad=True)
+    rng = np.random.default_rng(0)
+    vis = torch.from_numpy(rng.normal(size=(2, 4, 32)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 90)))
+    logits = tcap.forward(params, cfg, vis.cuda(), toks.cuda(), remat=remat,
+                          flash=flash)
+    logits.square().mean().backward()
+    torch.cuda.synchronize()
+    return {k: p.grad for k, p in tck.tree_leaves(params)}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_flash_forward_does_not_cut_the_gradient_on_the_card(dev, remat):
+    """``forward(..., flash=True)`` under autograd on the card: every leaf
+    below the attention gets the gradient the plain version gives it,
+    within 5% of the leaf's largest (bfloat16 compute)."""
+    fa.reset_counts()
+    flash = _leaf_grads(True, remat)
+    layers = 2
+    assert fa.LAUNCHES["flash_bwd_dkv"] == fa.LAUNCHES["flash_bwd_dq"] == \
+        layers and fa.REF_CALLS == 0
+    assert fa.LAUNCHES["flash_fwd"] == layers * (2 if remat else 1)
+    plain = _leaf_grads(False)
+    for key, ref in plain.items():
+        assert flash[key] is not None, key
+        rel = float((flash[key] - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        assert rel < 0.05, (key, rel)
+    assert float(flash["blocks/0/qkv_w"].abs().max()) > 0
+
+
+def test_fused_vit_attention_raises_under_autograd(dev):
+    """The short-attention kernel has no backward: training the tower with
+    ``attn_impl='fused'`` on the card raises, and ``einsum`` trains."""
+    from vidgraph_tpu_torch.models import vit as tvit
+
+    cfg = tvit.ViTConfig(image_size=64, patch_size=32, width=128, layers=1,
+                         heads=2, embed_dim=32, attn_impl="fused")
+    tower = tvit.init_vision_tower(cfg, device=dev)
+    x = torch.randn(2, 64, 64, 3, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tower(x)
+    with torch.no_grad():
+        assert tower(x).shape == (2, 32)

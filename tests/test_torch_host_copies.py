@@ -1,5 +1,6 @@
 """Drift guard: the port's host modules are verbatim copies of the JAX
 package's, so a fix to either must reach both."""
+import ast
 from pathlib import Path
 
 import pytest
@@ -40,6 +41,27 @@ def test_host_module_is_a_verbatim_copy(rel):
     port = (ROOT / "vidgraph_tpu_torch" / rel).read_bytes()
     assert port == (ROOT / "vidgraph_tpu" / rel).read_bytes(), (
         f"vidgraph_tpu_torch/{rel} drifted from vidgraph_tpu/{rel}")
+
+
+# copies whose code is the JAX module's, under a module docstring of their own
+CODE_COPIES = ["models/instruct_data.py"]
+
+
+def _code(path: Path) -> str:
+    """The module's syntax tree without its docstring."""
+    tree = ast.parse(path.read_text())
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", CODE_COPIES)
+def test_host_module_code_is_a_copy(rel):
+    port, jax_side = (ROOT / pkg / rel
+                      for pkg in ("vidgraph_tpu_torch", "vidgraph_tpu"))
+    assert _code(port) == _code(jax_side), (
+        f"vidgraph_tpu_torch/{rel} drifted from vidgraph_tpu/{rel}")
+    assert rel not in VERBATIM
 
 
 # modules of the port with no module of the same path in the JAX package

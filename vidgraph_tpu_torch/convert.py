@@ -15,7 +15,8 @@ gives the same embedder.  What crosses is
   as a checkpoint in the JAX npz format (``models/checkpoint.py``);
 * the vision tower's Flax tree, with ``vit_params_from_jax``, or inside
   the VLM checkpoint ``{"vit": <flax tree>, "cap": <captioner tree>}``
-  that ``services/vlm_client.py::TPUVLMClient`` reads.
+  that ``services/vlm_client.py::TPUVLMClient`` reads;
+* trained parameters back to numpy, with ``to_numpy_tree``.
 
 Nothing here imports the JAX package: it takes the numpy state it writes.
 """
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .memory.embedding_store import EmbeddingStore
-from .models.checkpoint import from_numpy
+from .models.checkpoint import from_numpy, to_numpy
 from .models.text_embedder import HashedNGramEmbedder
 
 
@@ -83,3 +84,22 @@ def vit_params_from_jax(tree: Any, device: Optional[torch.device] = None
     from .models.vit import state_dict_from_tree
 
     return state_dict_from_tree(captioner_params_from_jax(tree, device))
+
+
+def to_numpy_tree(tree: Any) -> Any:
+    """The way back: a parameter tree of the port (nested dicts and lists
+    of tensors) as numpy arrays for the JAX package, bfloat16 leaves as
+    ``ml_dtypes.bfloat16`` where that package is installed and as uint16
+    bit patterns otherwise."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy_tree(v) for v in tree]
+    bf16, arr = to_numpy(tree)
+    if bf16:
+        try:
+            import ml_dtypes
+        except ImportError:
+            return arr
+        return arr.view(ml_dtypes.bfloat16)
+    return arr

@@ -29,6 +29,15 @@ def device() -> torch.device:
     return dev
 
 
+def use_device(name: str) -> torch.device:
+    """Make ``name`` (``cuda``, ``cuda:0``, ``cpu``) the device the port
+    computes on for the rest of the process, and return it: the entry
+    point of a script with a ``--device`` flag.  A CUDA device that is
+    absent raises."""
+    os.environ[DEVICE_ENV] = name
+    return device()
+
+
 def describe_device(dev: torch.device) -> Dict[str, object]:
     """Name, count and memory of the card behind ``dev`` (for records)."""
     if dev.type != "cuda":

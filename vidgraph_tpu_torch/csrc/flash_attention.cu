@@ -33,6 +33,14 @@
 // heaviest (last) first.  A fully masked tile row never divides by zero:
 // its max is -inf, and the exponent is taken against 0 instead.
 //
+// For training the kernel also writes each row's log-sum-exp
+// L[r] = log sum_c exp(s[r,c] | visible), float32 [B, H, T] in natural-log
+// units: the one residual the backward kernels of flash_attention_bwd.cu
+// recompute the probabilities from (the TPU kernel saves the running max
+// and sum separately).  Serving passes a null pointer and takes the
+// instantiation without that store (kWriteLse false): the pointer held
+// through the kernel cost the hd 64 forward a spilled register and 3-4 %.
+//
 // Later work (not here): wgmma, TMA loads into a ring of tiles, and warp
 // specialisation.  The entry point has a plain C interface and returns
 // cudaGetLastError() so that a refused launch is reported to the caller.
@@ -66,13 +74,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int kHeadDim>
+template <int kHeadDim, bool kWriteLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ out, int T, int H, int nv,
-               float scale_log2) {
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               int T, int H, int nv, float scale_log2) {
   constexpr int kKStride = kHeadDim + 8;          // K smem row, padded
   constexpr int kDimSteps = kHeadDim / 16;        // k-steps of q . k
   constexpr int kDimTiles = kHeadDim / 8;         // n-tiles of p . v
@@ -218,6 +226,17 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
+  // m is in the log2 domain: L = (m + log2 l) ln 2.  Key 0 is visible to
+  // every row, so l > 0.
+  if (kWriteLse && tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + i * 8;
+      if (r < T)
+        lse[static_cast<size_t>(blockIdx.y) * T + r] =
+            (m[i] + log2f(l[i])) * 0.6931471805599453f;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + i * 8;
@@ -238,10 +257,10 @@ extern "C" {
 int flash_takes_head_dim(int hd) { return hd == 64 || hd == 128; }
 
 // q, k, v, out: [B, T, H, hd] bf16, contiguous, 16-byte aligned; hd 64 or
-// 128.
+// 128.  lse: float32 [B, H, T], or null to write none.
 int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
-                          void* out, int B, int T, int H, int hd, int nv,
-                          void* stream) {
+                          void* out, void* lse, int B, int T, int H, int hd,
+                          int nv, void* stream) {
   if (!flash_takes_head_dim(hd))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + kQTile - 1) / kQTile, B * H);
@@ -250,13 +269,20 @@ int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(out);
+  auto* lp = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    flash_attn_fwd<64><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, T, H, nv,
-                                                  scale_log2);
+  if (hd == 64 && lp == nullptr)
+    flash_attn_fwd<64, false><<<grid, kThreads, 0, st>>>(
+        qb, kb, vb, ob, lp, T, H, nv, scale_log2);
+  else if (hd == 64)
+    flash_attn_fwd<64, true><<<grid, kThreads, 0, st>>>(
+        qb, kb, vb, ob, lp, T, H, nv, scale_log2);
+  else if (lp == nullptr)
+    flash_attn_fwd<128, false><<<grid, kThreads, 0, st>>>(
+        qb, kb, vb, ob, lp, T, H, nv, scale_log2);
   else
-    flash_attn_fwd<128><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, T, H, nv,
-                                                   scale_log2);
+    flash_attn_fwd<128, true><<<grid, kThreads, 0, st>>>(
+        qb, kb, vb, ob, lp, T, H, nv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

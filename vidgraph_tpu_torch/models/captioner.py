@@ -3,11 +3,17 @@
 Counterpart of ``vidgraph_tpu/models/captioner.py``, as plain functions over
 a parameter dict with the JAX tree's keys (``tok_emb``, ``pos_emb``,
 ``blocks/<i>/qkv_w`` ...), so that ``models/checkpoint.py`` reads and writes
-the JAX package's npz as it is.  Ported: the full-sequence ``forward``, the
-prefill and the KV-cached greedy decode behind ``generate_from_tokens``
-(the chat LM, ``backend.llm: tpu``) and ``generate`` (the vision-prefix
-caption decode, ``backend.vlm: tpu``), with float or int8 (``Q8``,
-``models/quant8.py``) block matrices.  Training is ROADMAP slice 9.
+the JAX package's npz as it is.  Ported: the full-sequence ``forward``
+(differentiable w.r.t. every float leaf, with ``remat`` and ``flash`` as
+in the JAX package: what ``models/train.py`` and the trainer scripts
+train through), the prefill and the KV-cached greedy decode behind
+``generate_from_tokens`` (the chat LM, ``backend.llm: tpu``) and
+``generate`` (the vision-prefix caption decode, ``backend.vlm: tpu``),
+with float or int8 (``Q8``, ``models/quant8.py``) block matrices.
+
+Training keeps float32 master weights and computes in ``cfg.dtype``:
+``wdot`` casts a weight at every call, so autograd carries the cast back
+to the float32 leaf (do not train through ``serving_params``).
 
 Numerics follow the JAX package: the residual stream stays float32, layer
 norms run in float32, biases are cast to the compute dtype before they are
@@ -19,7 +25,8 @@ Choices of the port, none visible in the outputs beyond float32
 rounding:
 
 * The prefill's attention is ``ops/flash_attention.py``: with
-  ``flash=True`` on the card the CUDA kernel, otherwise the plain version.
+  ``flash=True`` on the card the CUDA kernel (under autograd its backward
+  kernels too), otherwise the plain version.
   The kernel takes any T, so the TPU's ``flash_pad_len`` padding is gone.
   ``generate``'s prefill (the nv vision slots and BOS) takes it by
   default, where the JAX package runs the einsum path; its mask is the
@@ -41,12 +48,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from .checkpoint import tree_leaves
 from .quant8 import is_q8, wdot
 from .tokenizer import BOS_ID, EOS_ID, VOCAB_SIZE
 
@@ -102,12 +112,14 @@ class CaptionerConfig:
 def init_params(cfg: CaptionerConfig,
                 generator: Optional[torch.Generator] = None,
                 param_dtype: torch.dtype = torch.float32,
-                device: Optional[torch.device] = None) -> Dict:
+                device: Optional[torch.device] = None,
+                requires_grad: bool = False) -> Dict:
     """Random parameters in the JAX tree's layout: matrices N(0, 0.02) in
     ``param_dtype``, layer-norm scales one, biases zero (float32).  Drawn
     on the host from ``generator`` (seed 0 when None), then moved to
     ``device``; JAX's ``PRNGKey`` draws other numbers, so weights cross
-    between the packages through ``convert.py`` or a checkpoint."""
+    between the packages through ``convert.py`` or a checkpoint.
+    ``requires_grad`` marks every leaf for training (``trainable``)."""
     gen = generator or torch.Generator().manual_seed(0)
     d, v = cfg.width, cfg.vocab
 
@@ -137,7 +149,39 @@ def init_params(cfg: CaptionerConfig,
             "fc1_w": dense(d, 4 * d), "fc1_b": full(4 * d, 0.0),
             "fc2_w": dense(4 * d, d), "fc2_b": full(d, 0.0),
         })
-    return p
+    return trainable(p) if requires_grad else p
+
+
+def trainable(params: Dict) -> Dict:
+    """``params`` with every leaf marked as requiring a gradient, in
+    place; returns it.  A quantised (``Q8``) leaf is not trainable and
+    raises: train the float tree and quantise for serving afterwards."""
+    for key, leaf in tree_leaves(params):
+        if is_q8(leaf):
+            raise ValueError(f"{key} is int8 (Q8): a quantised tree is for "
+                             "serving, not for training")
+        leaf.requires_grad_(True)
+    return params
+
+
+def flash_engaged(requested: bool, device: Any = None) -> bool:
+    """Whether ``flash=requested`` will run the CUDA kernels: on a CUDA
+    ``device`` (default: ``core.platform.device()``) it does; on the CPU
+    ``forward`` takes the plain attention, which materialises the
+    [B, h, T, T] probabilities.  Trainers derive their remat decision from
+    this and not from the flag alone (the JAX package's ``flash_engaged``
+    asks for a TPU in the same way)."""
+    if device is None:
+        from ..core.platform import device as default_device
+
+        device = default_device()
+    engaged = bool(requested) and torch.device(device).type == "cuda"
+    if requested and not engaged:
+        warnings.warn(
+            f"flash attention requested but the device is '{device}' (not "
+            "CUDA): taking the masked-einsum path; enable remat or expect "
+            "to run out of memory at scale", RuntimeWarning, stacklevel=2)
+    return engaged
 
 
 def quantize_params(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
@@ -217,12 +261,22 @@ def _embed_inputs(params, cfg: CaptionerConfig, vision_emb, tokens):
 
 
 def forward(params: Dict, cfg: CaptionerConfig, vision_emb: torch.Tensor,
-            tokens: torch.Tensor, flash: bool = False) -> torch.Tensor:
+            tokens: torch.Tensor, remat: bool = False,
+            flash: bool = False) -> torch.Tensor:
     """Full-sequence forward: logits [B, T, vocab] (float32) for the token
-    positions.  ``flash=True`` takes the CUDA kernel on the card."""
+    positions, differentiable w.r.t. every float leaf of ``params``.
+    ``remat=True`` recomputes each block in the backward pass instead of
+    keeping its activations (``jax.checkpoint`` in the JAX package): what
+    training at a long sequence needs when the attention probabilities
+    are materialised.  ``flash=True`` takes the CUDA kernels on the card,
+    forward and backward, which keep one float32 per row instead."""
     x = _embed_inputs(params, cfg, vision_emb, tokens)
     for bp in params["blocks"]:
-        x = _block(bp, cfg, x, flash)[0]
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda bp_, x_: _block(bp_, cfg, x_, flash)[0],
+                           bp, x, use_reentrant=False)
+        else:
+            x = _block(bp, cfg, x, flash)[0]
     return _head_logits(params, cfg, x[:, cfg.num_vision_tokens:])
 
 

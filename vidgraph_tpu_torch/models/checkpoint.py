@@ -19,8 +19,9 @@ import torch
 _BF16_PREFIX = "__bf16__/"
 
 
-def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(key, leaf) pairs of a nested dict/list tree, keys '/'-joined."""
+def tree_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) pairs of a nested dict/list tree, keys '/'-joined
+    (``blocks/0/qkv_w``); anything else, a ``Q8`` included, is a leaf."""
     if isinstance(tree, dict):
         items = ((str(k), v) for k, v in tree.items())
     elif isinstance(tree, (list, tuple)):
@@ -29,7 +30,7 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
         return
     for k, v in items:
-        yield from _leaves(v, f"{prefix}/{k}" if prefix else k)
+        yield from tree_leaves(v, f"{prefix}/{k}" if prefix else k)
 
 
 def _rebuild(tree: Any, fn, prefix: str = "") -> Any:
@@ -54,7 +55,8 @@ def to_numpy(t: torch.Tensor) -> Tuple[bool, np.ndarray]:
 
 def from_numpy(arr: np.ndarray, bf16: bool) -> torch.Tensor:
     """Inverse of :func:`to_numpy`."""
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array (a saved step count) 1-d
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if bf16:
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)
@@ -63,7 +65,7 @@ def from_numpy(arr: np.ndarray, bf16: bool) -> torch.Tensor:
 
 def save_params(params: Any, path: str) -> str:
     flat: Dict[str, np.ndarray] = {}
-    for key, leaf in _leaves(params):
+    for key, leaf in tree_leaves(params):
         bf16, arr = to_numpy(torch.as_tensor(leaf))
         flat[(_BF16_PREFIX + key) if bf16 else key] = arr
     p = Path(path)

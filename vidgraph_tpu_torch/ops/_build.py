@@ -57,8 +57,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cosine_topk_merge_launch.restype = i
     lib.cosine_tile_rows.restype = i
     lib.cosine_max_dim.restype = i
-    lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
+    lib.flash_bwd_delta_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.flash_bwd_delta_launch.restype = i
+    lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                         i, p]
+    lib.flash_bwd_dkv_launch.restype = i
+    lib.flash_bwd_dq_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        p]
+    lib.flash_bwd_dq_launch.restype = i
     lib.flash_takes_head_dim.argtypes = [i]
     lib.flash_takes_head_dim.restype = i
     lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, i, i,

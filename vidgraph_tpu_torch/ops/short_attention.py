@@ -109,6 +109,12 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor,
         return short_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no short-attention kernel for {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "the short-attention kernel has no backward (the Pallas kernel "
+            "it replaces has no VJP either): train the vision tower with "
+            "attn_impl='einsum'")
     return _cuda_short_attention(q, k, v)
 
 

@@ -59,10 +59,11 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    (``F.interpolate(bilinear, antialias=True)`` and the affine), the
    CUDA-event median of a call of the kernel's wrapper, and of the uint8
    upload;
-10. the short-attention kernel against its plain version at B in {5, 160}
-   frames x 12 heads x N 50 x hd 64, bf16; device times of both and of
-   ``F.scaled_dot_product_attention`` as the yardstick, and the wrapper's
-   call time;
+10. the short-attention kernel (tensor cores) against its plain version
+   at B in {1, 5, 160} frames x 12 heads x N 50 x hd 64, bf16, and at B 5
+   and 160 on the ViT's strided views of one qkv product; device times of
+   both and of ``F.scaled_dot_product_attention`` as the yardstick, and
+   the wrapper's call time;
 11. the vision path (``backend.vlm: tpu``) at full width:
    ``ViTConfig.b32()`` and ``CaptionerConfig.base()`` with seed weights
    written as a JAX-format npz and loaded through ``vlm.checkpoint_path``
@@ -116,18 +117,22 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    CLI's ``vlm`` with ``vlm.quantize: int8`` at ``base()`` width on phase
    11's frame source;
 14. the FlashAttention backward kernels (``flash_bwd_delta``,
-   ``flash_bwd_dkv``, ``flash_bwd_dq``) and the forward's log-sum-exp
+   ``flash_bwd_fused``, ``flash_bwd_dq_convert``: one pass, five products)
+   and the forward's log-sum-exp
    against their plain versions (``attention_bwd_ref``, ``lse_ref``; one
    batch row at a time, so that the plain [h, T, T] tensors stay small) at
    the shapes the training paths launch: B 8 x T 3080 and B 16 x T 1544 at
    8 heads x 64 (``CaptionerConfig.chat()``, both buckets of the instruct
    trainer), B 16 x T 1032 at 16 x 64 (the mid-scale config), T 1033 at
-   16 x 128, and T 40 and 1033 with nv 0 and 8: dq, dk, dv within
+   16 x 128, T 40 and 1033 with nv 0 and 8, and prefixes of 64, 70 and
+   100 (T 64, 130, 200): dq, dk, dv within
    ``TOL_ABS + TOL_REL * |plain|`` and ``BWD_REL_FRO`` of the plain
-   gradient's norm, two runs equal bit for bit, and a planted fault (the
-   plain backward without ``delta``) outside the tolerance.  Then
-   CUDA-event medians at the three training shapes: the forward with its
-   residual, each backward kernel, the plain backward, and
+   gradient's norm, two runs' dk and dv equal bit for bit and their float32
+   dq accumulators within ``DQ_RUN_REL`` of its norm (atomics add in no
+   fixed order), and a planted fault (the plain backward without
+   ``delta``) outside the tolerance.  Then CUDA-event medians at the three
+   training shapes: the forward with its residual, each backward kernel
+   and the three together, the plain backward, and
    ``F.scaled_dot_product_attention`` forward + backward under autograd
    with the boolean prefix mask (the yardstick, never called by the port);
 15. training at full width through the trainers' ``main``: (a)
@@ -145,14 +150,30 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    kernels had a backward) past it; the saved ``instruct_lm.npz`` then
    serves one completion through ``make_chat_client("tpu")``.  (b)
    ``scripts/train_torch_midscale.py --flash --steps 12`` at the 204M
-   config (batch 16 x 1024), then 4 steps with the masked einsum and
-   remat: step time, tokens/s, MFU against 989 TFLOP/s, peak memory, the
-   bf16 round trip.  (c) ``models/train.py::TrainState`` at
+   config (batch 16 x 1024), then 12 steps with the masked einsum and
+   remat from the same seed (the same weights, batches and schedule): step
+   time, tokens/s, MFU against 989 TFLOP/s, peak memory, the bf16 round
+   trip; the two runs' first four losses within ``MIDSCALE_LOSS_TOL``, and
+   every leaf's gradient at the mid-scale width (16 heads x 1024, a batch
+   of 4 x 1024 windows) with the kernels against einsum + remat within
+   ``TRAIN_GRAD_TOL``.  (c) ``models/train.py::TrainState`` at
    ``ViTConfig.b32()`` + ``CaptionerConfig.base()`` width, B 8, 3 steps on
-   one batch: the loss falls.
+   one batch: the loss falls;
+16. ACS, the device sweep as torch ops (``pipeline/acs.py``, no kernel of
+   its own): on ``bench.py``'s ``barabasi_albert_graph(926, 2, seed=0)``,
+   ``update_metrics`` under ``acs.backend: auto`` takes the device sweep
+   and returns no ``error``; every metric but Louvain's equals exact
+   NetworkX (the port's ``networkx`` backend with sampling off) within
+   ``tests/test_acs.py``'s tolerances, the others within
+   ``ACS_OTHER_TOL``.  Then ms of a full metric pass (``_compute``, the
+   mean of 3 after a warm-up) with the device sweep
+   (``acs_full_metrics_ms_926n``, ``bench.py``'s key) and with the
+   ``networkx`` backend as ``auto`` would run it, at 926 nodes and on
+   Barabási–Albert graphs of 64, 96, 128, 256 and 512 nodes: where
+   ``auto`` would switch on this card.
 
-``--phases 14,15`` runs only the named phases (with the build): a partial
-run prints no kernels record and no ``ok`` line.
+``--phases 14,15,16`` runs only the named phases (with the build): a
+partial run prints no kernels record and no ``ok`` line.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Each
@@ -178,6 +199,7 @@ import asyncio
 import dataclasses
 import itertools
 import json
+import math
 import os
 import random
 import re
@@ -222,10 +244,23 @@ LARGE_FLASH_LOGIT_TOL = 0.1
 # (the gradients of late rows are far below TOL_ABS, so the elementwise
 # tolerance alone would pass much there)
 BWD_REL_FRO = 2e-2
+# phase 14: two runs' float32 dq accumulators (atomics add in no fixed
+# order): ||a - b||_F <= DQ_RUN_REL x ||a||_F
+DQ_RUN_REL = 1e-6
 # phase 15: per-leaf gradients of the training loss with the kernels and
 # with the masked einsum + remat, max |diff| / max |plain| (the limit of the
 # JAX package's own flash-vs-einsum gradient test on its chip)
 TRAIN_GRAD_TOL = 0.05
+# phase 15b: |loss_flash - loss_einsum_remat| over the mid-scale runs' first
+# four steps (same seed: same weights, batches and schedule).  The two
+# differ by bf16 products in another order: the logits by bf16 rounding
+# (~1e-4 on a step's loss), which Adam's first updates, near lr x sign(g),
+# may carry into the next steps' weights.  0.01 stays far below what one
+# update moves the loss (~0.8 at step 2), so a wrong gradient cannot pass
+MIDSCALE_LOSS_TOL = 0.01
+# phase 16: the metrics tests/test_acs.py does not name, device sweep vs
+# exact NetworkX (both exact; rounded to 4 decimals)
+ACS_OTHER_TOL = 1e-3
 # H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 _TIKTOKEN_BLOCK = ('raise ImportError("tiktoken is kept out of this run: its '
@@ -991,38 +1026,50 @@ def phase_preprocess(seed: int, card: str) -> dict:
 
 # ----------------------------------------------------------------- phase 10
 def phase_short_attention(seed: int, card: str) -> dict:
-    """Kernel B against its plain version at the ViT's shapes, then
-    medians of the kernel, the plain version and SDPA."""
+    """Kernel B against its plain version at the ViT's shapes (separate
+    tensors, and strided views of one qkv product as ``models/vit.py``
+    passes them), then device times of the kernel, the plain version and
+    SDPA."""
     from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
     from vidgraph_tpu_torch.ops import short_attention as sa
 
     rng = np.random.default_rng(seed + 4)
     rows = {}
-    for b in (5, 160):
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (b, 12, 50, 64), dtype=np.float32)).to("cuda", torch.bfloat16)
-            for _ in range(3))
+    for name, b, strided in (("b1", 1, False), ("b5", 5, False),
+                             ("b160", 160, False), ("b5_strided", 5, True),
+                             ("b160_strided", 160, True)):
+        if strided:
+            qkv = torch.from_numpy(rng.standard_normal(
+                (b, 50, 3 * 768), dtype=np.float32)).to("cuda",
+                                                       torch.bfloat16)
+            q, k, v = (z.reshape(b, 50, 12, 64).transpose(1, 2)
+                       for z in qkv.split(768, dim=-1))
+        else:
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (b, 12, 50, 64), dtype=np.float32)).to("cuda",
+                                                       torch.bfloat16)
+                for _ in range(3))
         got = sa.fused_short_attention(q, k, v)
         torch.cuda.synchronize()
         ref = sa.short_attention_ref(q, k, v).float()
         err = (got.float() - ref).abs()
         excess = float((err - sa.TOL_ABS - sa.TOL_REL * ref.abs()).max())
         assert bool(torch.isfinite(got).all()) and excess <= 0, \
-            f"short attention B={b}: max |err| {float(err.max())}"
+            f"short attention {name}: max |err| {float(err.max())}"
 
         def kernel():
             return sa.fused_short_attention(q, k, v)
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v)
-        rows[f"b{b}"] = {
+        rows[name] = {
             "max_abs_err": float(err.max()),
             "kernel_ms": graph_ms(kernel),
             "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
             "library_ms": graph_ms(sdpa),
             "library_kernels": device_kernels(sdpa),
             "call_ms": cuda_ms(kernel),
-            **bound(4 * q.numel() * 2, 4.0 * b * 12 * 50 * 50 * 64,
+            **bound(4 * b * 12 * 50 * 64 * 2, 4.0 * b * 12 * 50 * 50 * 64,
                     BF16_FLOPS)}
     log(f"phase 10: short-attention kernel within {sa.TOL_ABS} + "
         f"{sa.TOL_REL} x |plain|; times on {card} (ms; device time per call, 20 "
@@ -1630,12 +1677,15 @@ def phase_quantized(seed: int, card: str) -> dict:
 
 
 # ----------------------------------------------------------------- phase 14
-# (B, T, heads, hd, nv); the first three are the training paths' shapes
+# (B, T, heads, hd, nv); the first three are the training paths' shapes;
+# the last three hold prefixes of a tile and more (key tiles above the
+# diagonal that rows below nv still see)
 BWD_SHAPES = [(8, 3080, 8, 64, 8), (16, 1544, 8, 64, 8),
               (16, 1032, 16, 64, 8), (2, 1033, 16, 128, 8),
               (2, 1033, 16, 128, 0), (2, 1033, 8, 64, 8),
               (2, 1033, 8, 64, 0), (3, 40, 8, 64, 8), (3, 40, 8, 64, 0),
-              (3, 40, 16, 128, 8)]
+              (3, 40, 16, 128, 8), (1, 64, 8, 64, 64), (2, 130, 8, 64, 70),
+              (2, 200, 16, 128, 100)]
 BWD_TIMED = 3
 
 
@@ -1712,23 +1762,38 @@ def phase_flash_backward(seed: int, card: str) -> dict:
         out, first = grads()
         _, second = grads()
         torch.cuda.synchronize()
-        same_bits = all(torch.equal(a, c) for a, c in zip(first, second))
+        # dk and dv: bit-equal; dq: summed by atomics, compared before its
+        # rounding to bf16
+        same_bits = all(torch.equal(a, c) for a, c in zip(first[1:],
+                                                          second[1:]))
         lse = fa._cuda_flash(q, k, v, nv, with_lse=True)[1]
-        delta = fa._cuda_delta(out, do)
+        accs = []
+        for _ in range(2):
+            delta, acc = fa._cuda_delta(out, do)
+            fa._cuda_bwd_fused(q, k, v, do, lse, delta, acc, nv)
+            accs.append(acc)
         torch.cuda.synchronize()
+        dq_run_rel = float((accs[0] - accs[1]).norm()) / max(
+            float(accs[0].norm()), 1e-30)
+        scale = 1.0 / math.sqrt(hd)
+        convert_err = float((fa._cuda_dq_convert(accs[0]).float() - (
+            accs[0] * scale).to(torch.bfloat16).float()).abs().max())
         lse_err = max(float((lse[i] - fa.lse_ref(q[i:i + 1], k[i:i + 1],
                                                  nv)[0]).abs().max())
                       for i in range(b))
         delta_err = float((delta - (do.float() * out.float()).sum(-1)
                            .transpose(1, 2)).abs().max())
         row = {**bwd_errors(fa, q, k, v, out, lse, do, first, nv),
-               "bit_equal": same_bits, "lse_err": lse_err,
+               "dk_dv_bit_equal": same_bits, "dq_run_rel": dq_run_rel,
+               "convert_err": convert_err, "lse_err": lse_err,
                "delta_err": delta_err}
         name = f"b{b}_T{t}_h{h}x{hd}_nv{nv}"
         assert all(bool(torch.isfinite(g).all()) for g in first), name
         assert row["excess"] <= 0 and row["rel_fro"] <= BWD_REL_FRO, \
             f"flash backward {name}: {row}"
-        assert same_bits, f"flash backward {name}: two runs differ"
+        assert same_bits, f"flash backward {name}: two runs' dk, dv differ"
+        assert dq_run_rel <= DQ_RUN_REL and convert_err == 0.0, \
+            f"flash backward {name}: {row}"
         assert lse_err <= 2e-3 and delta_err <= 1e-3 * max(
             1.0, float(delta.abs().max())), f"{name}: {row}"
         if planted is None and t <= 1100:
@@ -1747,26 +1812,31 @@ def phase_flash_backward(seed: int, card: str) -> dict:
                 "fwd_lse_ms": cuda_ms(lambda: fa._cuda_flash(
                     q, k, v, nv, with_lse=True)),
                 "delta_ms": cuda_ms(lambda: fa._cuda_delta(out, do)),
-                "dkv_ms": cuda_ms(lambda: fa._cuda_dkv(q, k, v, do, lse,
-                                                       delta, nv)),
-                "dq_ms": cuda_ms(lambda: fa._cuda_dq(q, k, v, do, lse,
-                                                     delta, nv)),
+                "fused_ms": cuda_ms(lambda: fa._cuda_bwd_fused(
+                    q, k, v, do, lse, delta, acc, nv)),
+                "convert_ms": cuda_ms(lambda: fa._cuda_dq_convert(acc)),
+                "bwd_ms": cuda_ms(lambda: fa._cuda_flash_bwd(
+                    q, k, v, out, lse, do, nv)),
                 "plain_delta_ms": cuda_ms(
                     lambda: (do.float() * out.float()).sum(-1)
                     .transpose(1, 2).contiguous()),
+                "plain_convert_ms": cuda_ms(
+                    lambda: (acc * scale).to(torch.bfloat16)),
                 "bound": {
                     "fwd": bound(4 * tensor + vec, 2 * product, BF16_FLOPS),
-                    "delta": bound(2 * tensor + vec, 2.0 * b * t * h * hd,
+                    # o and dO in, delta out, the float32 dq accumulator
+                    # (two bf16 tensors' bytes) zeroed
+                    "delta": bound(4 * tensor + vec, 2.0 * b * t * h * hd,
                                    F32_FLOPS),
-                    # the least each function needs alone: S, dP and its
-                    # own outputs' products (4 for dkv, 3 for dq)
-                    "dkv": bound(6 * tensor + 2 * vec, 4 * product,
-                                 BF16_FLOPS),
-                    "dq": bound(5 * tensor + 2 * vec, 3 * product,
-                                BF16_FLOPS),
-                    # one pass that shares S and dP: 5 products
-                    "bwd_shared": bound(8 * tensor + vec, 5 * product,
-                                        BF16_FLOPS)}})
+                    # q, k, v, dO, L, delta in; dk, dv and the dq
+                    # accumulator out; S, dP, dV, dK, dQ: 5 products
+                    "fused": bound(8 * tensor + 2 * vec, 5 * product,
+                                   BF16_FLOPS),
+                    "convert": bound(3 * tensor, 0.0, F32_FLOPS),
+                    # the whole backward: q, k, v, o, dO, L in, dq, dk,
+                    # dv out, 5 products
+                    "bwd": bound(8 * tensor + vec, 5 * product,
+                                 BF16_FLOPS)}})
             del first, second
             torch.cuda.empty_cache()
             row["plain_bwd_ms"] = cuda_ms(
@@ -1775,11 +1845,12 @@ def phase_flash_backward(seed: int, card: str) -> dict:
             torch.cuda.empty_cache()
             row.update(library_sdpa_train(q, k, v, do, mask))
         rows[name] = row
-        del q, k, v, do, out, lse, delta
+        del q, k, v, do, out, lse, delta, acc, accs
         torch.cuda.empty_cache()
     log(f"phase 14: flash backward kernels within {fa.TOL_ABS} + "
         f"{fa.TOL_REL} x |plain| and {BWD_REL_FRO} of the plain norm, two "
-        f"runs bit-equal; planted fault (no delta) {json.dumps(planted)}; "
+        f"runs' dk, dv bit-equal and dq accumulators within {DQ_RUN_REL}; "
+        f"planted fault (no delta) {json.dumps(planted)}; "
         f"times on {card} (median, ms): {json.dumps(rows)}")
     return {"rows": rows, "planted": planted}
 
@@ -1812,13 +1883,14 @@ def training_corpus(tmp: Path, seed: int) -> Path:
     return path
 
 
-def leaf_grads(mod, params, cfg, toks, plens, remat, flash) -> tuple:
-    """(loss, {leaf: gradient or None}) of the instruct loss."""
+def leaf_grads(params, loss_of) -> tuple:
+    """(loss, {leaf: gradient or None}) of ``loss_of()``, a training
+    loss of ``params``."""
     from vidgraph_tpu_torch.models.checkpoint import tree_leaves
 
     for _, p in tree_leaves(params):
         p.grad = None
-    loss = mod.instruct_loss(params, cfg, toks, plens, remat, flash)
+    loss = loss_of()
     loss.backward()
     torch.cuda.synchronize()
     return loss.item(), {k: p.grad for k, p in tree_leaves(params)}
@@ -1860,7 +1932,7 @@ def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
     fwd_want = layers * (steps + rec["held_evals"] * rec["held_buckets"]
                          + rec["held_examples"])
     assert rec["attention"] == "flash" and rec["remat"] is False, rec
-    assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == \
+    assert counts["flash_bwd_fused"] == counts["flash_bwd_dq_convert"] == \
         counts["flash_bwd_delta"] == layers * steps, counts
     assert counts["flash_fwd"] == fwd_want, (counts, fwd_want)
     assert plain == 0, f"the plain attention served {plain} calls"
@@ -1876,9 +1948,12 @@ def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
                          device=torch.device("cuda"), requires_grad=True)
     toks, plens = (torch.as_tensor(a, device="cuda")
                    for a in rec["first_batch"])
-    loss_f, g_flash = leaf_grads(mod, params, cfg, toks, plens, False, True)
+    def loss_of(remat, flash):
+        return lambda: mod.instruct_loss(params, cfg, toks, plens, remat,
+                                         flash)
+    loss_f, g_flash = leaf_grads(params, loss_of(False, True))
     assert abs(loss_f - rec["losses"][0]) < 1e-3, (loss_f, rec["losses"][0])
-    loss_e, g_plain = leaf_grads(mod, params, cfg, toks, plens, True, False)
+    loss_e, g_plain = leaf_grads(params, loss_of(True, False))
     leaf, rel = worst_leaf(g_flash, g_plain)
     assert abs(loss_f - loss_e) < 2e-2 and rel < TRAIN_GRAD_TOL, \
         f"gradients with the kernels: {leaf} differs by {rel} of its max"
@@ -1888,7 +1963,7 @@ def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
         lambda q, k, v, nv: fa._cuda_flash(q.detach(), k.detach(),
                                            v.detach(), nv)[0])
     try:
-        _, g_cut = leaf_grads(mod, params, cfg, toks, plens, False, True)
+        _, g_cut = leaf_grads(params, loss_of(False, True))
     finally:
         fa.FlashAttentionFn.apply = real
     cut_leaf, cut_rel = worst_leaf(g_cut, g_plain)
@@ -1922,14 +1997,40 @@ def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
     return res
 
 
+def midscale_grad_check(mod, seed: int, corpus: str) -> dict:
+    """Every leaf's gradient of the mid-scale loss at its full width (16
+    heads x 1024) from the seed weights, on 4 packed windows of 1024: the
+    kernels against the masked einsum with remat."""
+    from vidgraph_tpu_torch.models.captioner import init_params
+
+    cfg = mod.mid_config(1024)
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=torch.device("cuda"), requires_grad=True)
+    captions = [r["content"] for r in json.loads(Path(corpus).read_text())[
+        "results"] if r.get("content")]
+    toks = mod.pack_corpus(captions, 1024, random.Random(seed))
+    batch = torch.as_tensor(toks[:4], device="cuda")
+    loss_f, g_flash = leaf_grads(
+        params, lambda: mod.lm_loss(params, cfg, batch, False, True))
+    loss_e, g_plain = leaf_grads(
+        params, lambda: mod.lm_loss(params, cfg, batch, True, False))
+    leaf, rel = worst_leaf(g_flash, g_plain)
+    assert abs(loss_f - loss_e) < 2e-2 and rel < TRAIN_GRAD_TOL, \
+        f"mid-scale gradients with the kernels: {leaf} differs by {rel}"
+    del params, g_flash, g_plain
+    torch.cuda.empty_cache()
+    return {"loss_flash": loss_f, "loss_einsum_remat": loss_e,
+            "worst_leaf": leaf, "worst_rel": rel, "tol": TRAIN_GRAD_TOL}
+
+
 def phase_train_midscale(seed: int, card: str, tmp: Path) -> dict:
     from vidgraph_tpu_torch.ops import flash_attention as fa
 
     mod = load_script("train_torch_midscale")
     corpus = str(training_corpus(tmp, seed))
     runs = {}
-    for name, argv, steps in (("flash", ["--flash"], 12),
-                              ("einsum_remat", [], 4)):
+    steps = 12
+    for name, argv in (("flash", ["--flash"]), ("einsum_remat", [])):
         fa.reset_counts()
         torch.cuda.empty_cache()
         rec = mod.main(["--corpus", corpus, "--steps", str(steps), "--seed",
@@ -1944,19 +2045,27 @@ def phase_train_midscale(seed: int, card: str, tmp: Path) -> dict:
             "attention", "remat", "params_m", "step_ms", "tokens_per_sec",
             "train_mfu", "mfu_peak", "peak_memory_gb", "first_loss",
             "last_loss", "bf16_roundtrip_exact", "decode_sample")},
+            "losses": rec["losses"],
             "launches": dict(fa.LAUNCHES), "plain_calls": fa.REF_CALLS}
     fl, ein = runs["flash"], runs["einsum_remat"]
     assert fl["attention"] == "flash" and fl["remat"] is False, fl
     assert ein["attention"] == "einsum" and ein["remat"] is True, ein
     assert fl["last_loss"] < fl["first_loss"], fl
     # 16 layers x 12 steps, plus the decode sample's prefill
-    assert fl["launches"]["flash_bwd_dkv"] == fl["launches"][
-        "flash_bwd_dq"] == 16 * 12, fl["launches"]
-    assert fl["launches"]["flash_fwd"] == 16 * 12 + 16, fl["launches"]
+    assert fl["launches"]["flash_bwd_fused"] == fl["launches"][
+        "flash_bwd_dq_convert"] == 16 * steps, fl["launches"]
+    assert fl["launches"]["flash_fwd"] == 16 * steps + 16, fl["launches"]
     assert fl["plain_calls"] == 0 and ein["launches"]["flash_fwd"] == 0
+    # the same seed gives both runs the same weights, batches and schedule
+    gaps = [abs(a - b) for a, b in zip(fl["losses"][:4], ein["losses"][:4])]
+    assert max(gaps) <= MIDSCALE_LOSS_TOL, \
+        f"mid-scale flash and einsum + remat losses part: {gaps}"
+    res = {"runs": runs, "loss_gaps_first4": gaps,
+           "loss_tol": MIDSCALE_LOSS_TOL,
+           "grad_check": midscale_grad_check(mod, seed, corpus)}
     log(f"phase 15b: mid-scale trainer, 204M, 16 x 1024, on {card}: "
-        f"{json.dumps(runs)}")
-    return runs
+        f"{json.dumps(res)}")
+    return res
 
 
 def phase_train_state(seed: int, card: str) -> dict:
@@ -1997,6 +2106,94 @@ def phase_training(seed: int, card: str) -> dict:
                 "train_state": phase_train_state(seed, card)}
 
 
+# ----------------------------------------------------------------- phase 16
+ACS_SIZES = (64, 96, 128, 256, 512, 926)
+# tests/test_acs.py::test_xla_matches_networkx's tolerances
+ACS_NAMED_TOL = {"global_efficiency": 1e-3, "avg_path_length": 1e-3,
+                 "diameter_estimate": 0, "weakly_connected_components": 0,
+                 "largest_wcc_size": 0, "pagerank_top10_percent": 0.5}
+
+
+class GraphOf:
+    """A graph store's view for ``ACSAutomata``: the nodes of an
+    undirected networkx graph as entities, each edge as two relations."""
+
+    def __init__(self, graph):
+        self.entities = {f"n{i}": {} for i in graph.nodes}
+        self.chunks = {}
+        self.rels = [(f"n{a}", "r", f"n{b}") for a, b in graph.edges] + [
+            (f"n{b}", "r", f"n{a}") for a, b in graph.edges]
+        self.from_chunk = []
+
+
+def acs_ms(acs, names, adj, backend: str, reps: int = 3) -> float:
+    """Mean ms of a full metric pass (``_compute``) after one warm-up."""
+    acs._compute(names, adj, backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        acs._compute(names, adj, backend)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_acs(card: str) -> dict:
+    """The ACS device sweep on the card against exact NetworkX on
+    bench.py's 926-node graph, then both backends' times by graph size."""
+    import networkx as nx
+
+    from vidgraph_tpu_torch.core.config import ACSConfig
+    from vidgraph_tpu_torch.pipeline import acs as tacs
+
+    graph = nx.barabasi_albert_graph(926, 2, seed=0)
+    store = GraphOf(graph)
+    calls = []
+    real = tacs._acs_fused
+
+    def counted(*args, **kw):
+        calls.append(args[-1])
+        return real(*args, **kw)
+
+    tacs._acs_fused = counted
+    try:
+        dev = tacs.ACSAutomata(store, ACSConfig(backend="auto")) \
+            .update_metrics()
+    finally:
+        tacs._acs_fused = real
+    assert "error" not in dev and calls == [1024], (dev, calls)
+    exact = tacs.ACSAutomata(store, ACSConfig(
+        backend="networkx", exact_efficiency_max_nodes=10 ** 6,
+        betweenness_k=10 ** 6)).update_metrics()
+    gaps = {}
+    for key, want in exact.items():
+        if key in ("computational_time", "louvain_communities",
+                   "louvain_modularity"):
+            continue
+        tol = ACS_NAMED_TOL.get(key, ACS_OTHER_TOL)
+        got = dev[key]
+        if got is None or want is None:
+            assert got == want, (key, got, want)
+            continue
+        gaps[key] = abs(got - want)
+        assert gaps[key] <= tol, f"ACS {key}: device {got}, NetworkX {want}"
+    times = {}
+    for n in ACS_SIZES:
+        g = graph if n == 926 else nx.barabasi_albert_graph(n, 2, seed=0)
+        adj = nx.to_numpy_array(g).astype(np.float32)
+        names = [f"n{i}" for i in range(n)]
+        acs = tacs.ACSAutomata(GraphOf(g), ACSConfig())
+        times[f"{n}n"] = {"device_ms": acs_ms(acs, names, adj, "xla"),
+                          "networkx_ms": acs_ms(acs, names, adj,
+                                                "networkx", reps=1)}
+    res = {"metrics_device": dev, "metrics_networkx_exact": exact,
+           "gaps": gaps, "acs_full_metrics_ms_926n":
+           times["926n"]["device_ms"], "times": times,
+           "auto_min_nodes": tacs._AUTO_XLA_MIN_NODES}
+    log(f"phase 16: ACS device sweep on {card} equals exact NetworkX on the "
+        f"926-node graph (Louvain aside); ms by graph size: "
+        f"{json.dumps(res)}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   quant, bwd, training) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
@@ -2016,7 +2213,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
     inst = training["instruct"]["launches"]
-    mid = training["midscale"]["flash"]["launches"]
+    mid = training["midscale"]["runs"]["flash"]["launches"]
     bwd_rows = bwd["rows"]
     brow = bwd_rows["b8_T3080_h8x64_nv8"]
     bwd_src = "vidgraph_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -2088,6 +2285,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "library_kernels": short5["library_kernels"],
          "call_ms": short5["call_ms"],
          "bound_ms": short5["bound_ms"], "bound_by": short5["bound_by"],
+         "b160_ms": short["b160"]["kernel_ms"],
+         "b160_library_ms": short["b160"]["library_ms"],
+         "b160_bound_ms": short["b160"]["bound_ms"],
          "timed": "B=5 x 12 heads, N=50, hd=64, bf16"},
         {"name": "q8_matmul", "route": "cuda",
          "source": "vidgraph_tpu_torch/csrc/q8_matmul.cu",
@@ -2109,29 +2309,31 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "max_abs_err": max(r["delta_err"] for r in bwd_rows.values()),
          "ms": brow["delta_ms"], "plain_ms": brow["plain_delta_ms"],
          "library_ms": None, **brow["bound"]["delta"], "timed": bwd_timed},
-        {"name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
-         "replaces": bwd_site, "replaces_in_jax": jax_flash + ":1121",
-         "launches": inst["flash_bwd_dkv"] + mid["flash_bwd_dkv"],
+        {"name": "flash_bwd_fused", "route": "cuda", "source": bwd_src,
+         "replaces": bwd_site,
+         "replaces_in_jax": jax_flash + ":1121 and :1456",
+         "launches": inst["flash_bwd_fused"] + mid["flash_bwd_fused"],
          "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
          "max_rel_fro": max(r["rel_fro"] for r in bwd_rows.values()),
-         "ms": brow["dkv_ms"], "plain_ms": brow["plain_bwd_ms"],
+         "ms": brow["fused_ms"], "plain_ms": brow["plain_bwd_ms"],
          "library_ms": brow["library_bwd_ms"],
          "library_kernels": brow["library_kernels"],
-         **brow["bound"]["dkv"],
-         "timed": bwd_timed + "; plain_ms and library_ms are of the whole "
-                  "backward (dq, dk and dv): attention_bwd_ref, and SDPA's "
-                  "forward + backward less its forward"},
-        {"name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
+         **brow["bound"]["fused"],
+         "backward_ms": brow["bwd_ms"],
+         "backward_bound_ms": brow["bound"]["bwd"]["bound_ms"],
+         "timed": bwd_timed + "; dk, dv and dq (added into a float32 "
+                  "accumulator) in one pass of 5 products; plain_ms and "
+                  "library_ms are of the whole backward: attention_bwd_ref, "
+                  "and SDPA's forward + backward less its forward; "
+                  "backward_ms is delta + fused + convert"},
+        {"name": "flash_bwd_dq_convert", "route": "cuda", "source": bwd_src,
          "replaces": bwd_site, "replaces_in_jax": jax_flash + ":1456",
-         "launches": inst["flash_bwd_dq"] + mid["flash_bwd_dq"],
-         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows.values()),
-         "max_rel_fro": max(r["rel_fro"] for r in bwd_rows.values()),
-         "ms": brow["dq_ms"], "plain_ms": brow["plain_bwd_ms"],
-         "library_ms": brow["library_bwd_ms"],
-         "library_kernels": brow["library_kernels"],
-         **brow["bound"]["dq"],
-         "timed": bwd_timed + "; plain_ms and library_ms as for "
-                  "flash_bwd_dkv"},
+         "launches": (inst["flash_bwd_dq_convert"]
+                      + mid["flash_bwd_dq_convert"]),
+         "max_abs_err": max(r["convert_err"] for r in bwd_rows.values()),
+         "ms": brow["convert_ms"], "plain_ms": brow["plain_convert_ms"],
+         "library_ms": None, **brow["bound"]["convert"],
+         "timed": bwd_timed + "; dq = bf16(accumulator / sqrt(hd))"},
     ]}
 
 
@@ -2141,7 +2343,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14,15 "
+                    help="development: run only these of phases 14,15,16 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2164,19 +2366,23 @@ def main() -> int:
     log(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s ({_build.library_path.name})")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
+        if "entry function" in line:
+            log("  ptxas:", line.split("'")[1][:160])
+        elif "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
 
     only = ({int(x) for x in args.phases.split(",")} if args.phases
             else None)
-    if only is not None and not only <= {14, 15}:
-        ap.error("--phases takes 14 and 15")
+    if only is not None and not only <= {14, 15, 16}:
+        ap.error("--phases takes 14, 15 and 16")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         if 14 in only:
             phase_flash_backward(args.seed, card)
         if 15 in only:
             phase_training(args.seed, card)
+        if 16 in only:
+            phase_acs(card)
         assert "jax" not in sys.modules, "the port's run imported jax"
         log(f"phases {sorted(only)} done at {time.perf_counter() - t0:.1f} s "
             f"(partial run)")
@@ -2197,7 +2403,8 @@ def main() -> int:
     log(f"phases 1-13 done at {time.perf_counter() - t0:.1f} s")
     bwd = phase_flash_backward(args.seed, card)
     training = phase_training(args.seed, card)
-    log(f"phases 1-15 done at {time.perf_counter() - t0:.1f} s")
+    acs = phase_acs(card)
+    log(f"phases 1-16 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training)
@@ -2208,7 +2415,7 @@ def main() -> int:
         "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits,
         "preprocess_ms": pre, "short_attention_ms": short,
         "vision": vision, "q8_matmul_ms": q8k, "quantized": quant,
-        "flash_backward": bwd, "training": training})
+        "flash_backward": bwd, "training": training, "acs": acs})
     print(json.dumps(record))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,8 @@ the same tolerance against the plain gradients rounded to bfloat16, and,
 since the gradients of late rows are far below ``TOL_ABS``, also a
 Frobenius error of at most ``BWD_REL_FRO`` of the gradient's norm.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -91,7 +93,8 @@ def test_launch_counts_and_no_plain_calls(dev):
     q, k, v = _qkv(1, 100, 2, 0, dev)
     fa.reset_counts()
     fa.flash_attention(q, k, v, 8)
-    none = {"flash_bwd_delta": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    none = {"flash_bwd_delta": 0, "flash_bwd_fused": 0,
+            "flash_bwd_dq_convert": 0}
     assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 0
     fa.flash_attention(q, k, v, 8, flash=False)
     assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 1
@@ -153,12 +156,22 @@ def test_backward_matches_plain(dev, h, hd, t, nv):
     _assert_backward_close(2, t, h, hd, nv, dev)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("b,t,h,nv", [(1, 200, 2, 100), (1, 64, 2, 64),
-                                      (1, 130, 2, 70)])
-def test_backward_with_a_long_prefix(dev, b, t, h, nv):
+                                      (1, 130, 2, 70), (2, 300, 2, 150)])
+def test_backward_with_a_long_prefix(dev, b, t, h, nv, hd):
     """A prefix longer than a tile: key tiles above the diagonal are still
-    visible to the rows below nv."""
-    _assert_backward_close(b, t, h, 64, nv, dev)
+    visible to the rows below nv, and the masked-chunk skips must not hide
+    them."""
+    _assert_backward_close(b, t, h, hd, nv, dev)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [2, 17, 63, 64, 127, 129, 200])
+def test_backward_ragged_lengths(dev, t, hd):
+    """T off a multiple of the 64-row tiles (and of the 32-query chunks and
+    16-key steps): the ragged tiles are zero-filled and masked."""
+    _assert_backward_close(2, t, 2, hd, 8, dev)
 
 
 def test_backward_large_scores(dev):
@@ -169,12 +182,31 @@ def test_backward_large_scores(dev):
 
 @pytest.mark.parametrize("hd", [64, 128])
 def test_backward_two_runs_give_the_same_bits(dev, hd):
+    """dk and dv are written by the block that owns their keys, so two runs
+    give the same bits.  dq is summed across key tiles by float32 atomics
+    in an order that changes from run to run: two runs' float32
+    accumulators stay within 1e-6 of its Frobenius norm, and the bf16 dq
+    rounded from them within one bf16 step (2^-7 of the larger)."""
     q, k, v = _qkv(2, 1033, 4, 3, dev, hd=hd)
     do = _qkv(2, 1033, 4, 4, dev, hd=hd)[2]
     first = _grads(q, k, v, 8, do)[1]
     second = _grads(q, k, v, 8, do)[1]
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert bool(((dq1 - dq2).abs()
+                 <= 2.0 ** -7 * torch.maximum(dq1.abs(), dq2.abs())).all())
+    out, lse = fa._cuda_flash(q, k, v, 8, with_lse=True)
+    accs = []
+    for _ in range(2):
+        delta, acc = fa._cuda_delta(out, do)
+        fa._cuda_bwd_fused(q, k, v, do, lse, delta, acc, 8)
+        accs.append(acc)
+    torch.cuda.synchronize()
+    assert float((accs[0] - accs[1]).norm()) <= 1e-6 * float(accs[0].norm())
+    scale = 1.0 / math.sqrt(hd)
+    assert torch.equal(fa._cuda_dq_convert(accs[0]),
+                       (accs[0] * scale).to(torch.bfloat16))
 
 
 def test_backward_launch_counts(dev):
@@ -182,7 +214,7 @@ def test_backward_launch_counts(dev):
     fa.reset_counts()
     _grads(q, k, v, 8, torch.ones_like(q))
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_delta": 1,
-                           "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+                           "flash_bwd_fused": 1, "flash_bwd_dq_convert": 1}
     assert fa.REF_CALLS == 0
     fa.reset_counts()
     with torch.no_grad():
@@ -245,8 +277,8 @@ def test_flash_forward_does_not_cut_the_gradient_on_the_card(dev, remat):
     fa.reset_counts()
     flash = _leaf_grads(True, remat)
     layers = 2
-    assert fa.LAUNCHES["flash_bwd_dkv"] == fa.LAUNCHES["flash_bwd_dq"] == \
-        layers and fa.REF_CALLS == 0
+    assert fa.LAUNCHES["flash_bwd_fused"] == \
+        fa.LAUNCHES["flash_bwd_dq_convert"] == layers and fa.REF_CALLS == 0
     assert fa.LAUNCHES["flash_fwd"] == layers * (2 if remat else 1)
     plain = _leaf_grads(False)
     for key, ref in plain.items():

@@ -43,20 +43,23 @@ def _assert_close(q, k, v):
     assert bool(torch.isfinite(got).all())
 
 
-# the shapes of chip_smoke.py phase 10, and others the kernel takes: N not
-# a multiple of 4, above 64 (two keys a lane), above 48 KB of shared
-# memory (N = 197, ViT-B/16's tokens), a single token
-@pytest.mark.parametrize("b,h,n", [(5, 12, 50), (160, 12, 50), (1, 2, 5),
+# the shapes of chip_smoke.py phase 10 (B 1, 5, 160 x 12 heads x N 50)
+# and N 49, and others the kernel takes: N off a multiple of the 16-row
+# strips, above one 64-key tile (N 70, and 197, ViT-B/16's tokens, in four
+# tiles), the most it takes (256), a single token
+@pytest.mark.parametrize("b,h,n", [(1, 12, 50), (5, 12, 50), (160, 12, 50),
+                                   (5, 12, 49), (160, 12, 49), (1, 2, 5),
                                    (2, 4, 33), (2, 2, 70), (1, 2, 197),
-                                   (3, 2, 1)])
+                                   (1, 2, 256), (3, 2, 1)])
 def test_kernel_matches_plain(dev, b, h, n):
     _assert_close(*_qkv(b, h, n, 64, b + n, dev))
 
 
-def test_strided_views_of_one_product(dev):
+@pytest.mark.parametrize("b,n", [(1, 50), (5, 50), (160, 50), (5, 49)])
+def test_strided_views_of_one_product(dev, b, n):
     """The ViT's q, k, v: slices of one [b, n, 3d] product, transposed."""
-    qkv = torch.randn(5, 50, 3 * 768, device=dev, dtype=torch.bfloat16)
-    q, k, v = (z.reshape(5, 50, 12, 64).transpose(1, 2)
+    qkv = torch.randn(b, n, 3 * 768, device=dev, dtype=torch.bfloat16)
+    q, k, v = (z.reshape(b, n, 12, 64).transpose(1, 2)
                for z in qkv.split(768, dim=-1))
     _assert_close(q, k, v)
 
@@ -80,9 +83,18 @@ def test_launch_counts_and_no_plain_calls(dev):
     ((1, 2, 50, 32), torch.bfloat16),       # head dim 32
     ((1, 2, 50, 64), torch.float32),        # float32
     ((1, 2, 50, 64), torch.float16),        # fp16
-    ((1, 2, 1000, 64), torch.bfloat16),     # shared memory
+    ((1, 2, 257, 64), torch.bfloat16),      # more than 256 tokens
     ((1, 3, 50, 64), torch.bfloat16)])      # odd heads
 def test_kernel_rejects_what_it_cannot_take(dev, shape, dtype):
     q, k, v = _qkv(*shape, 0, dev, dtype)
     with pytest.raises(ValueError):
         sa.fused_short_attention(q, k, v)
+
+
+def test_kernel_rejects_rows_off_16_bytes(dev):
+    """The 16-byte copies need every row on 16 bytes: a view one element
+    into its storage is refused."""
+    x = torch.zeros(1 * 2 * 50 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    q = x[1:].view(1, 2, 50, 64)
+    with pytest.raises(ValueError):
+        sa.fused_short_attention(q, q, q)

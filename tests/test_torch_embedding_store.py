@@ -2,6 +2,8 @@
 
 The JAX store runs searches below 8192 rows as host BLAS and above it on
 its device path; both are compared (``device_min_rows`` 8192 and 0).  The
+port takes the JAX constructor's keywords (``dtype``, ``device_min_rows``)
+with a float32 or bfloat16 mirror.  The
 port runs every size through ``ops/topk_cosine`` (here its plain version).
 Scores within 1e-5; ids equal wherever scores are more than 1e-5 apart.
 """
@@ -106,3 +108,43 @@ def test_store_from_jax_state_round_trips():
     np.testing.assert_allclose(again.vectors(), store.vectors(),
                                atol=1e-7, rtol=0)
     assert again.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("spelling", ["torch", "jax", "name"])
+def test_jax_keywords_give_the_jax_results(dtype, spelling):
+    """``EmbeddingStore(dim, capacity, dtype=..., device_min_rows=0)``, the
+    JAX signature (``__graft_entry__.py`` calls it so), also through
+    ``make_embedding_store``: the JAX store's results with a float32 or a
+    bfloat16 mirror, the type given as torch's, JAX's or its name."""
+    import jax.numpy as jnp
+
+    from vidgraph_tpu_torch.parallel.serving import make_embedding_store
+
+    given = {"torch": getattr(torch, dtype), "jax": getattr(jnp, dtype),
+             "name": dtype}[spelling]
+    dim = 32
+    jax_store = JaxStore(dim, 2048, dtype=getattr(jnp, dtype),
+                         device_min_rows=0)
+    stores = [EmbeddingStore(dim, 2048, dtype=given, device_min_rows=0),
+              make_embedding_store(dim, 2048, dtype=given,
+                                   device_min_rows=0)]
+    rng = _fill([jax_store, *stores], 700, dim, seed=3)
+    q = rng.normal(size=(6, dim)).astype(np.float32)
+    for store in stores:
+        assert store.dtype == getattr(torch, dtype)
+        assert store.device_min_rows == 0 and store.capacity == 2048
+        _assert_same_hits(store.search(q, 9), jax_store.search(q, 9))
+        np.testing.assert_allclose(store.similarity_matrix(q),
+                                   jax_store.similarity_matrix(q),
+                                   atol=TOL, rtol=0)
+
+
+def test_jax_defaults_and_unsupported_mirror_types():
+    store = EmbeddingStore(8)
+    jax_store = JaxStore(8)
+    assert store.device_min_rows == jax_store.device_min_rows == 8192
+    assert store.dtype == torch.float32
+    for bad in ("float16", torch.float64, np.int8):
+        with pytest.raises(ValueError):
+            EmbeddingStore(8, dtype=bad)

@@ -5,7 +5,8 @@ packages build a graph with the recall profile (``config/
 high_recall_config.yaml``: vector search on, pre-injector similarity on,
 word splitter) and NetworkX ACS.  Then graphs must be equal exactly; the
 retrieval texts of 10 queries with ``entity_first=False`` equal; ACS
-metrics and the benchmark JSON for one results file equal; and the port
+metrics under NetworkX, and under ``auto`` (the device sweep) but for
+Louvain, and the benchmark JSON for one results file equal; and the port
 must rebuild ``tests/golden/pipeline_golden.json`` from the committed
 ``tests/golden/vlm_output_golden.json``.
 
@@ -305,6 +306,37 @@ def test_cuda_asked_for_and_absent_raises(monkeypatch):
     assert platform.device() == torch.device("cpu")
 
 
-def test_acs_xla_backend_raises():
-    with pytest.raises(NotImplementedError):
-        tacs.ACSAutomata(None, tcfg.ACSConfig(backend="xla"))
+def test_acs_xla_backend_raises(built, monkeypatch):
+    """``acs.backend: xla`` builds (it raised before the device sweep was
+    ported) and a failure of the fused device sweep raises out of
+    ``_compute`` (no fallback to another path); ``update_metrics`` turns it
+    into the reference's ``error`` record."""
+    _pkg, cfg, store, _d = built["port"]
+    acs = tacs.ACSAutomata(store, tcfg.ACSConfig(backend="xla"))
+    names, adj, _ = acs._build_arrays()
+
+    def broken(*args, **kw):
+        raise RuntimeError("device sweep failed")
+
+    monkeypatch.setattr(tacs, "_acs_fused", broken)
+    with pytest.raises(RuntimeError, match="device sweep failed"):
+        acs._compute(names, adj, "xla")
+    assert acs.update_metrics()["error"] == "device sweep failed"
+
+
+def test_acs_metrics_under_auto_are_equal(built):
+    """The shipped default, ``acs.backend: auto``: on the kg graph (above
+    96 nodes, so both packages take their device sweep) every metric but
+    Louvain's two (random masks from another stream) and the time is
+    equal."""
+    got = {}
+    for name, (pkg, _cfg, store, _d) in built.items():
+        m = pkg["acs"].ACSAutomata(store, pkg["cfg"].ACSConfig(
+            backend="auto")).update_metrics()
+        for key in ("computational_time", "louvain_communities",
+                    "louvain_modularity"):
+            m.pop(key)
+        got[name] = m
+    assert "error" not in got["port"]
+    assert got["port"]["node_count"] >= tacs._AUTO_XLA_MIN_NODES
+    assert got["port"] == got["jax"]

@@ -207,10 +207,10 @@ class GraphStoreConfig(_Model):
 
 
 class ACSConfig(_Model):
-    # auto | xla | networkx; the port runs networkx for auto and raises
-    # on xla (pipeline/acs.py)
+    # auto | xla | networkx; xla is the device sweep as torch ops, which
+    # auto takes from 96 nodes up (pipeline/acs.py)
     backend: str = "auto"
-    louvain: str = "device"    # device (XLA, approx) | networkx (exact seed)
+    louvain: str = "device"    # device (approx) | networkx (exact seed)
     exact_efficiency_max_nodes: int = 500
     sample_sources: int = 100
     betweenness_k: int = 100

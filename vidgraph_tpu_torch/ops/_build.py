@@ -59,14 +59,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cosine_max_dim.restype = i
     lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
-    lib.flash_bwd_delta_launch.argtypes = [p, p, p, i, i, i, i, p]
+    lib.flash_bwd_delta_launch.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flash_bwd_delta_launch.restype = i
-    lib.flash_bwd_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                         i, p]
-    lib.flash_bwd_dkv_launch.restype = i
-    lib.flash_bwd_dq_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        p]
-    lib.flash_bwd_dq_launch.restype = i
+    lib.flash_bwd_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                           i, i, p]
+    lib.flash_bwd_fused_launch.restype = i
+    lib.flash_bwd_dq_convert_launch.argtypes = [p, p, ctypes.c_longlong, i, p]
+    lib.flash_bwd_dq_convert_launch.restype = i
     lib.flash_takes_head_dim.argtypes = [i]
     lib.flash_takes_head_dim.restype = i
     lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, i, i,
@@ -76,9 +75,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i64, i64,
                                            i64, p]
     lib.short_attention_launch.restype = i
-    lib.short_attention_smem.argtypes = [i]
-    lib.short_attention_smem.restype = i
-    lib.short_attention_max_smem.restype = i
+    lib.short_attention_max_tokens.restype = i
     lib.short_attention_head_dim.restype = i
     lib.q8_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.q8_matmul_launch.restype = i

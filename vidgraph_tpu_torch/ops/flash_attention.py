@@ -8,7 +8,7 @@ backward is two more Pallas kernels, ``_flash_attention_bwd_dkv`` and
 ``_flash_attention_bwd_dq``) and then recomputes the nv x nv vision-prefix
 corner densely.  Here the forward is the CUDA C++ kernel ``flash_attn_fwd``
 of ``csrc/flash_attention.cu`` and the backward the kernels
-``flash_bwd_delta``, ``flash_bwd_dkv`` and ``flash_bwd_dq`` of
+``flash_bwd_delta``, ``flash_bwd_fused`` and ``flash_bwd_dq_convert`` of
 ``csrc/flash_attention_bwd.cu``, all of which fold the whole mask into one
 pass: key ``c`` is visible to query ``r`` iff ``c <= max(r, nv - 1)``, the
 rule of the einsum path's mask (``captioner.py:282-284``).  They take any
@@ -33,8 +33,10 @@ rounds the normalised ones, as the JAX einsum path does; the two agree to
 bfloat16 rounding (``TOL_ABS + TOL_REL * |ref|``).  The backward rounds P
 and dS to bfloat16 as tensor-core operands and dq, dk, dv once on the way
 out; the plain backward (``attention_bwd_ref``) is float32 throughout.
-With two kernels that each own their output rows and no atomics, two runs
-give the same bits.
+One fused pass computes S and dP once for dk, dv (written by the block that
+owns them: two runs give the same bits) and dq (summed across key tiles by
+float32 atomics into an accumulator: its last bits may differ between
+runs).
 
 Dispatch: ``flash_attention`` takes the plain version for a tensor on the
 CPU, or with ``flash=False`` (the ``VIDGRAPH_NO_FLASH_PREFILL`` opt-out);
@@ -57,7 +59,7 @@ from . import _build
 TOL_ABS, TOL_REL = 1e-2, 2e-2   # kernel vs plain version, bf16 outputs
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_delta": 0,
-                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+                            "flash_bwd_fused": 0, "flash_bwd_dq_convert": 0}
 REF_CALLS = 0
 
 
@@ -210,58 +212,72 @@ def _check_rows(name: str, x: torch.Tensor, like: torch.Tensor) -> None:
                          f"{like.device}, got {x.dtype} {tuple(x.shape)}")
 
 
-def _cuda_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """One ``flash_bwd_delta`` launch: ``rowsum(dout * out)`` as float32
-    [B, h, T]."""
+def _cuda_delta(out: torch.Tensor, dout: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``flash_bwd_delta`` launch: (``rowsum(dout * out)`` as float32
+    [B, h, T], and the zeroed float32 dq accumulator [B, T, h, hd])."""
     b, t, h, hd = out.shape
     lib = _build.library()
     _check_inputs(lib, out=out, dout=dout)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    dq_accum = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     with torch.cuda.device(out.device):
         _build.check(lib.flash_bwd_delta_launch(
-            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), b, t, h, hd,
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            dq_accum.data_ptr(), b, t, h, hd,
             torch.cuda.current_stream().cuda_stream), "flash_bwd_delta")
         LAUNCHES["flash_bwd_delta"] += 1
-    return delta
+    return delta, dq_accum
 
 
-def _cuda_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-              nv: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ``flash_bwd_dkv`` launch: (dk, dv), bfloat16 [B, T, h, hd]."""
+def _cuda_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dout: torch.Tensor, lse: torch.Tensor,
+                    delta: torch.Tensor, dq_accum: torch.Tensor, nv: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``flash_bwd_fused`` launch: (dk, dv), bfloat16 [B, T, h, hd];
+    the unscaled dq is added into ``dq_accum``."""
     b, t, h, hd = q.shape
     lib = _build.library()
     _check_inputs(lib, q=q, k=k, v=v, dout=dout)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
+    _check_accum(dq_accum, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _build.check(lib.flash_bwd_dkv_launch(
+        _build.check(lib.flash_bwd_fused_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, hd, nv, torch.cuda.current_stream().cuda_stream),
-            "flash_bwd_dkv")
-        LAUNCHES["flash_bwd_dkv"] += 1
+            dq_accum.data_ptr(), b, t, h, hd, nv,
+            torch.cuda.current_stream().cuda_stream), "flash_bwd_fused")
+        LAUNCHES["flash_bwd_fused"] += 1
     return dk, dv
 
 
-def _cuda_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-             nv: int) -> torch.Tensor:
-    """One ``flash_bwd_dq`` launch: dq, bfloat16 [B, T, h, hd]."""
-    b, t, h, hd = q.shape
+def _check_accum(x: torch.Tensor, like: torch.Tensor) -> None:
+    """``x`` must be contiguous float32 shaped as ``like`` on its device."""
+    if (x.shape != like.shape or x.dtype != torch.float32
+            or not x.is_contiguous() or x.device != like.device):
+        raise ValueError(f"dq_accum must be contiguous float32 "
+                         f"{tuple(like.shape)} on {like.device}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+def _cuda_dq_convert(dq_accum: torch.Tensor) -> torch.Tensor:
+    """One ``flash_bwd_dq_convert`` launch: dq = bf16(dq_accum /
+    sqrt(hd)), [B, T, h, hd]."""
     lib = _build.library()
-    _check_inputs(lib, q=q, k=k, v=v, dout=dout)
-    _check_rows("lse", lse, q)
-    _check_rows("delta", delta, q)
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        _build.check(lib.flash_bwd_dq_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, t, h, hd, nv, torch.cuda.current_stream().cuda_stream),
-            "flash_bwd_dq")
-        LAUNCHES["flash_bwd_dq"] += 1
+    hd = dq_accum.shape[-1]
+    if dq_accum.dim() != 4 or not lib.flash_takes_head_dim(hd):
+        raise ValueError(f"dq_accum {tuple(dq_accum.shape)}: [B, T, h, hd] "
+                         "with hd 64 or 128")
+    _check_accum(dq_accum, dq_accum)
+    dq = torch.empty(dq_accum.shape, dtype=torch.bfloat16,
+                     device=dq_accum.device)
+    with torch.cuda.device(dq_accum.device):
+        _build.check(lib.flash_bwd_dq_convert_launch(
+            dq_accum.data_ptr(), dq.data_ptr(), dq_accum.numel(), hd,
+            torch.cuda.current_stream().cuda_stream), "flash_bwd_dq_convert")
+        LAUNCHES["flash_bwd_dq_convert"] += 1
     return dq
 
 
@@ -270,9 +286,9 @@ def _cuda_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     nv: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three backward launches: (dq, dk, dv), bfloat16 [B, T, h, hd]."""
-    delta = _cuda_delta(out, dout)
-    dk, dv = _cuda_dkv(q, k, v, dout, lse, delta, nv)
-    return _cuda_dq(q, k, v, dout, lse, delta, nv), dk, dv
+    delta, dq_accum = _cuda_delta(out, dout)
+    dk, dv = _cuda_bwd_fused(q, k, v, dout, lse, delta, dq_accum, nv)
+    return _cuda_dq_convert(dq_accum), dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):

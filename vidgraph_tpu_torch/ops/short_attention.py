@@ -5,8 +5,9 @@ there, ``_fused_kernel`` (``pallas_call`` in ``fused_short_attention``),
 packs head pairs into a [2N, 2N] problem with a block-diagonal mask
 (``_pair_mask``) and pads it to 128 rows, to fill the TPU's 128-lane matrix
 unit.  That packing is a TPU device; here ``fused_short_attention`` is the
-CUDA C++ kernel ``short_attention`` of ``csrc/short_attention.cu``, one
-block per (batch, head), which computes the same exact attention per head:
+CUDA C++ kernel ``short_attention`` of ``csrc/short_attention.cu`` (both
+products on the tensor cores, mma.sync; a block a head, one warp a 16-row
+query strip), which computes the same exact attention per head:
 
     s = (q k^T) * (1 / sqrt(hd))        float32 scores
     p = softmax(s)                       float32, then rounded to v's dtype
@@ -15,8 +16,8 @@ block per (batch, head), which computes the same exact attention per head:
 What bounds it on the H100: bytes.  At the serving batch (5 frames x 12
 heads, N = 50, hd = 64, bf16) one layer reads q, k, v and writes the
 output, 1.54 MB: 0.46 us at 3.35 TB/s, below a launch; at 160 frames 49
-MB and 1.2 GFLOP, 14.7 us.  The kernel keeps the [N, N] scores in shared
-memory, so nothing but q, k, v and the output touches device memory.
+MB and 1.2 GFLOP, 14.7 us.  The kernel keeps the [N, N] scores in
+registers, so nothing but q, k, v and the output touches device memory.
 
 Also here: ``packed_attention`` (the JAX package's head-pair packing, in
 PyTorch ops; ``attn_impl='packed'``) and ``short_attention_ref``, the plain
@@ -126,6 +127,8 @@ def _cuda_short_attention(q: torch.Tensor, k: torch.Tensor,
         if x.dtype != torch.bfloat16:
             raise ValueError(f"{name} is {x.dtype}; the kernel takes "
                              "bfloat16")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if hd != lib.short_attention_head_dim():
         raise ValueError(f"head dim {hd}: the kernel takes "
                          f"{lib.short_attention_head_dim()}")
@@ -133,11 +136,12 @@ def _cuda_short_attention(q: torch.Tensor, k: torch.Tensor,
     if k.stride() != strides or v.stride() != strides or strides[3] != 1:
         raise ValueError("q, k and v must share strides, with hd "
                          "contiguous")
-    if lib.short_attention_smem(n) > lib.short_attention_max_smem():
-        raise ValueError(f"N = {n}: {lib.short_attention_smem(n)} bytes of "
-                         f"shared memory, above the kernel's "
-                         f"{lib.short_attention_max_smem()}")
-    if b * h == 0 or b * h > 2 ** 31 - 1:
+    if any(st % 8 for st in strides[:3]):
+        raise ValueError(f"strides {strides}: rows must start on 16 bytes")
+    if not 1 <= n <= lib.short_attention_max_tokens():
+        raise ValueError(f"N = {n}: the kernel takes 1 to "
+                         f"{lib.short_attention_max_tokens()} tokens")
+    if not 1 <= b * h <= 2 ** 31 - 1:
         raise ValueError(f"B*h = {b * h} out of the kernel's grid")
     out = torch.empty((b, h, n, hd), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):

@@ -301,7 +301,7 @@ def check_topk(tc, q, store, k, count) -> float:
 
 
 def phase_kernels(tc, seed: int, card: str) -> dict:
-    from vidgraph_tpu_torch.core.profiling import cuda_ms
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
 
     rng = np.random.default_rng(seed)
     host = rng.normal(size=(STORE_ROWS, DIM)).astype(np.float32)
@@ -330,6 +330,10 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
         times[f"topk_b{b}_k5"] = {
             "kernel_ms": cuda_ms(
                 lambda: tc.cosine_topk(q, store, 5, count=STORE_COUNT)),
+            # the device's time alone: a CUDA-event median of one call
+            # also holds the wrapper's host launch
+            "device_ms": graph_ms(
+                lambda: tc.cosine_topk(q, store, 5, count=STORE_COUNT)),
             "plain_ms": cuda_ms(
                 lambda: tc.cosine_topk_ref(q, store, 5, count=STORE_COUNT)),
             # context, not the plain version: an unordered-ties top-k
@@ -339,6 +343,8 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
     q = queries[:16]
     times["dense_b16"] = {
         "kernel_ms": cuda_ms(
+            lambda: tc.cosine_scores(q, store, count=STORE_COUNT)),
+        "device_ms": graph_ms(
             lambda: tc.cosine_scores(q, store, count=STORE_COUNT)),
         "plain_ms": cuda_ms(
             lambda: tc.cosine_scores_ref(q, store, count=STORE_COUNT)),
@@ -379,9 +385,9 @@ def library_topk(q, store, past, k):
 
 def library_tile_topk(tc, q, store, past, k):
     """The yardstick of the score kernel's top-k mode: the masked
-    scores, padded to whole tiles, and ``torch.topk`` within each tile."""
-    tile = tc._build.library().cosine_tile_rows()
+    scores, padded to whole segments, and ``torch.topk`` within each."""
     n = store.shape[0]
+    tile = tc.segment_rows(n, store.device)
     pad = -n % tile
     scores = F.pad(library_scores(q, store, past), (0, pad),
                    value=float("-inf"))
@@ -398,11 +404,11 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
 
 def time_topk_stages(tc, q, store, k: int = 5) -> dict:
     """Each kernel of the top-k apart, at B=16, k=5: ``cosine_score_tile``
-    in top-k mode (per-tile partials) and ``cosine_topk_merge``, each
+    in top-k mode (per-segment partials) and ``cosine_topk_merge``, each
     checked against its own plain version on the same inputs."""
     from vidgraph_tpu_torch.core.profiling import cuda_ms
 
-    tile = tc._build.library().cosine_tile_rows()
+    tile = tc.segment_rows(store.shape[0], store.device)
     pv, pi = tc.topk_partials(q, store, k, STORE_COUNT)
     torch.cuda.synchronize()
     rv, _ = tc.topk_partials_ref(q, store, k, STORE_COUNT, tile)
@@ -2232,7 +2238,11 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
          "library_ms": lib["score_topk_b16_k5"],
          **bound(store_bytes + kern["partial_bytes"], score_ops, F32_FLOPS),
-         "timed": "per-tile top-5 partials, B=16, 200000x512 f32"},
+         "topk_device_ms": {key: kern["times"][key]["device_ms"]
+                            for key in ("topk_b1_k5", "topk_b16_k5")},
+         "timed": "per-segment top-5 partials, B=16, 200000x512 f32; "
+                  "topk_device_ms: cosine_topk (tile pass + merge) from "
+                  "CUDA-graph replay"},
         {"name": "cosine_topk_merge", "route": "cuda", "source": src,
          "replaces": replaces, "launches": launches["merge"],
          "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
@@ -2240,12 +2250,13 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "plain_ms": stages["merge_b16_k5"]["plain_ms"],
          "library_ms": lib["merge_b16_k5"],
          **bound(kern["partial_bytes"] + 16 * 5 * 8, 0.0, F32_FLOPS),
-         "timed": "merge of the tiles' top-5 partials, B=16"},
+         "timed": "merge of the segments' top-5 partials, B=16"},
         {"name": "cosine_score_tile (dense mode)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": launches["score_dense"],
          "max_abs_err": kern["score_err"], "ms": dense["kernel_ms"],
          "plain_ms": dense["plain_ms"], "library_ms": lib["dense_b16"],
+         "device_ms": dense["device_ms"],
          **bound(store_bytes + 16 * STORE_ROWS * 4, score_ops, F32_FLOPS),
          "timed": "dense scores, B=16, 200000x512 f32"},
         {"name": "flash_attn_fwd", "route": "cuda",

@@ -64,11 +64,31 @@ def test_flash_matches_plain(dev, b, t, nv):
 
 
 @pytest.mark.parametrize("b,t,nv", [(4, 9, 8), (8, 9, 8), (2, 1033, 8),
-                                    (1, 2056, 8), (3, 40, 8), (2, 70, 0)])
+                                    (1, 2056, 8), (3, 40, 8), (2, 70, 0),
+                                    (8, 2056, 8)])
 def test_flash_head_dim_128_matches_plain(dev, b, t, nv):
     """The heads of ``CaptionerConfig.large()`` (16 x 128); T = 9 is the
     prefill of ``generate`` (nv + BOS)."""
     _assert_close(*_qkv(b, t, 16, t + nv, dev, hd=128), nv)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("nv", [0, 8, 64, 150])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 2056, 3080])
+def test_forward_edges_and_lse(dev, t, nv, hd):
+    """Ragged T around the 64-key stages (the TMA's zero fill) and the
+    64-row query tiles, prefixes that span several key tiles: the output
+    against ``attention_ref`` and the log-sum-exp against ``lse_ref``, and
+    the serving instantiation (no lse) gives the same bits."""
+    q, k, v = _qkv(1, t, 2, 7 * t + nv, dev, hd=hd)
+    out, lse = fa._cuda_flash(q, k, v, nv, with_lse=True)
+    torch.cuda.synchronize()
+    ref = fa.attention_ref(q, k, v, nv).to(torch.bfloat16).float()
+    excess = (out.float() - ref).abs() - (fa.TOL_ABS + fa.TOL_REL * ref.abs())
+    assert torch.isfinite(out.float()).all() and float(excess.max()) <= 0
+    torch.testing.assert_close(lse, fa.lse_ref(q, k, nv), atol=2e-3, rtol=0)
+    served, none = fa._cuda_flash(q, k, v, nv)
+    assert none is None and torch.equal(served, out)
 
 
 def test_flash_large_scores(dev):
@@ -172,6 +192,14 @@ def test_backward_ragged_lengths(dev, t, hd):
     """T off a multiple of the 64-row tiles (and of the 32-query chunks and
     16-key steps): the ragged tiles are zero-filled and masked."""
     _assert_backward_close(2, t, 2, hd, 8, dev)
+
+
+@pytest.mark.parametrize("t,nv,hd", [(3080, 8, 64), (129, 150, 128),
+                                     (2056, 64, 64)])
+def test_backward_fed_by_the_forward_lse(dev, t, nv, hd):
+    """The backward kernels read the log-sum-exp the wgmma forward writes,
+    at the training bucket's length and across prefix tiles."""
+    _assert_backward_close(1, t, 2, hd, nv, dev)
 
 
 def test_backward_large_scores(dev):

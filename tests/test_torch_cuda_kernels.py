@@ -74,6 +74,72 @@ def test_topk_other_widths(dev, d):
     _assert_topk(_queries(5, d, d, dev), _store(3000, d, d, dev), 5, 2900)
 
 
+@pytest.mark.parametrize("n", [1, 255, 257])
+@pytest.mark.parametrize("full", [False, True])
+def test_stores_shorter_than_a_stage_or_off_the_tile(dev, n, full):
+    """A store shorter than one ring stage (256 rows) or one row past it,
+    with nothing or everything counted: top-k and dense scores."""
+    count = n if full else 0
+    store = _store(n, 512, n + 11, dev)
+    q = _queries(3, 512, n, dev)
+    _assert_topk(q, store, 5, count)
+    got = tc.cosine_scores(q, store, count=count)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.cpu().numpy(), tc.cosine_scores_ref(q, store, count).cpu().numpy(),
+        atol=TOL, rtol=0)
+
+
+def test_more_tiles_than_persistent_blocks(dev):
+    """391 tiles of 256 rows over the card's SMs: every block walks a
+    segment of several tiles."""
+    n = 100_000
+    tiles = -(-n // tc._build.library().cosine_tile_rows())
+    assert tc.segment_tiles(n, dev) > 1 and tiles > torch.cuda. \
+        get_device_properties(dev).multi_processor_count
+    store = _store(n, 512, 12, dev)
+    for b in (1, 16):
+        _assert_topk(_queries(b, 512, 12, dev), store, 5, 99_000)
+
+
+@pytest.mark.parametrize("d", [4, 64, 2048])
+@pytest.mark.parametrize("b", [40, 70])
+def test_batches_split_across_launches(dev, d, b):
+    """B beyond one launch (32 queries, 8 at d = 2048): top-k and dense."""
+    store = _store(2000, d, d + b, dev)
+    q = _queries(b, d, d + b, dev)
+    _assert_topk(q, store, 5, 1900)
+    got = tc.cosine_scores(q, store, count=1900)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.cpu().numpy(), tc.cosine_scores_ref(q, store, 1900).cpu().numpy(),
+        atol=TOL, rtol=0)
+
+
+def test_ties_across_tile_segment_and_stage_boundaries(dev):
+    """One row copied to both sides of a tile boundary (255, 256), of a
+    segment boundary and into later tiles: its copies score the same bits
+    and come out in ascending row order, in the partials and the merge."""
+    n = 100_000
+    store = _store(n, 512, 13, dev)
+    seg = tc.segment_rows(n, dev)
+    dup = sorted({10, 255, 256, 257, seg - 1, seg, seg + 1, 2 * seg + 100,
+                  n - 1})
+    store[dup] = store[dup[0]].clone()
+    q = store[dup[0]].view(1, -1) * torch.tensor([[1.0], [2.0], [0.5]],
+                                                  device=dev)
+    k = len(dup) + 2
+    vals, idx = tc.cosine_topk(q, store, k, count=n)
+    torch.cuda.synchronize()
+    assert idx[:, :len(dup)].cpu().tolist() == [dup] * 3
+    assert bool((vals[:, :len(dup)] == vals[:, :1]).all())
+    pv, pi = tc.topk_partials(q, store, k, n)
+    rv, ri = tc.topk_partials_ref(q, store, k, n, seg)
+    torch.cuda.synchronize()
+    top = pv[:, :, :2] > 0.5
+    assert torch.equal(pi[:, :, :2][top], ri[:, :, :2][top])
+
+
 @pytest.mark.parametrize("b", [1, 30, 70])
 def test_dense_scores_match_plain(dev, b):
     store = _store(20_000, 512, 3, dev)
@@ -92,7 +158,7 @@ def test_each_stage_matches_its_plain_version(dev, b, n, k, count):
     q = _queries(b, 512, 6, dev)
     pv, pi = tc.topk_partials(q, store, k, count)
     torch.cuda.synchronize()
-    tile = tc._build.library().cosine_tile_rows()
+    tile = tc.segment_rows(n, dev)
     rv, ri = tc.topk_partials_ref(q, store, k, count, tile)
     np.testing.assert_array_equal(pv.isinf().cpu().numpy(),
                                   rv.isinf().cpu().numpy())

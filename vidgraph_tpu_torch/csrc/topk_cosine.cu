@@ -13,39 +13,65 @@
 // ties to the lower row index as lax.top_k breaks them).
 //
 // What bounds it on the H100: the store read.  At 200,000 x 512 float32 a
-// call reads 410 MB, about 0.12 ms at 3.35 TB/s, while the arithmetic is
-// 2*B*N*d = 3.3 GFLOP at B=16: the kernel is memory-bound for the batches
-// retrieval sends (1 to 32 queries).  So the design reads each store row
-// once for the whole query batch, with 16-byte loads by neighbouring lanes,
-// skips the read of masked rows, and keeps every score of a tile in shared
-// memory, so that top-k never writes the [B,N] scores to device memory.
-// At B=16 the next limit is the shared-memory read of q^ (2 KB a warp for
-// each row and query): a warp therefore holds several rows in registers
-// (4 at d <= 512) and uses each q^ value it reads for all of them.
+// call reads 410 MB, 0.122 ms at 3.35 TB/s; the arithmetic, 2*B*N*d = 3.3
+// GFLOP at B=16, is 0.049 ms at the 67 TFLOP/s of float32 FMAs.  The first
+// design (one block per 256-row tile, a warp shuffle reduction per row and
+// query, rows loaded in bursts with no copy in flight while scoring) was
+// bound by instructions at B=16 and by load latency at B=1: 2.0-2.7x its
+// bound on an NVIDIA H100 80GB HBM3 at 700 W.
 //
-// Kernel 1, cosine_score_tile: one block of 256 threads per tile of 256
-// store rows.  The block normalises its B queries into shared memory; each
-// warp walks 32 rows, a few at a time, holds them in registers and reduces
-// one dot product per row and query with warp shuffles.  Then it either
-// copies the tile's scores to the dense output, or one warp per query picks
-// the tile's top k and writes partials [B, n_tiles, k].
-// Kernel 2, cosine_topk_merge: one block per query merges the n_tiles
-// sorted partial lists head by head into the final [B,k].
+// This design:
+// * a persistent grid, one block of 4 warps per SM, each walking a
+//   contiguous segment of 256-row tiles, so the store streams once;
+// * a ring of 2-6 shared-memory stages (as many as fit beside q^), each a
+//   256-row x 32-float slice of a tile brought by one TMA copy
+//   (cp.async.bulk.tensor over a 2-D tensor map of the store's first
+//   `count` rows, encoded on the host by libcuda's
+//   cuTensorMapEncodeTiled, looked up at run time: no -lcuda), 128-byte swizzled, on an mbarrier
+//   a stage.  Rows at or past count and columns past d are zero-filled by
+//   the copy engine and never read.  The next slices are in flight while
+//   this one is scored.  (16-byte cp.async copies by every thread, the
+//   first version, kept too few bytes in flight: 0.22-0.25 ms at B 1-16);
+// * register tiling as an SGEMM: each thread holds 2 rows x QB queries of
+//   float32 accumulators (QB the batch rounded up to a power of two) over
+//   the d-slices, reads its rows' float4 from the stage (the swizzle puts
+//   eight neighbouring rows' float4 in eight bank groups) and each q^
+//   float4 as a warp-wide broadcast.  No shuffle per dot product; each q^
+//   read serves 64 rows, each row read serves QB queries;
+// * top-k: at each tile's end the scores go to shared memory and one warp
+//   per query merges the candidates that beat its running k-th best into a
+//   sorted list of k kept for the whole segment.  The partials are one list
+//   per segment [B, n_segments, k]; cosine_topk_merge merges them.
 //
-// Later work (not here): wgmma over a bf16 store, TMA loads, and a
-// persistent grid.  The entry points have a plain C interface and return
-// cudaGetLastError() so that a refused launch is reported to the caller.
+// Left as later work: a bfloat16 store (no config asks for one) and a
+// merge folded into the grid.  The entry points have a plain C interface
+// and return cudaGetLastError() so that a refused launch is reported to
+// the caller; a launch returns cudaErrorNotSupported where libcuda
+// offers no tensor-map encoder.
+
+#include "tma.cuh"
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;            // 8 warps
+using namespace vg_tma;
+
+constexpr int kThreads = 128;            // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 256;           // store rows per block
-constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kRowVecs = 16;             // float4 registers a lane gives rows
+constexpr int kRT = 2;                   // rows a thread scores
+constexpr int kTileRows = kWarps * 32 * kRT;   // 256
+constexpr int kDK = 32;                  // floats of a row in one stage
+constexpr int kStageBytes = kTileRows * kDK * 4;   // 32 KB, 128 B rows
+constexpr int kMaxStages = 6;
+constexpr int kMaxK = 64;
+constexpr int kMaxQueries = 32;
+constexpr int kMaxDim = 2048;
+constexpr int kSmemLimit = 232448;       // opt-in shared memory on sm_90
+// the 1024-byte alignment of the swizzled ring and its mbarriers
+constexpr int kExtraBytes = 1024 + 8 * kMaxStages;
 constexpr float kMasked = -1e30f;
 constexpr int kNoIndex = 0x7fffffff;
 
@@ -60,164 +86,259 @@ __device__ __forceinline__ bool better(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
 }
 
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float w = __shfl_xor_sync(0xffffffffu, v, o);
-    int j = __shfl_xor_sync(0xffffffffu, i, o);
-    if (better(w, j, v, i)) { v = w; i = j; }
+// The [256 rows][32 floats] box of the store at (column c0, row r0),
+// 128-byte swizzled, counted on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int r0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
+      : "memory");
+}
+
+__host__ __device__ constexpr int padded_dim(int dim) {
+  return (dim + kDK - 1) / kDK * kDK;
+}
+
+// Shared memory beside the ring: q^, the tile's scores, the lists.
+size_t side_bytes(int qb, int dim) {
+  return sizeof(float) * ((size_t)qb * padded_dim(dim) +
+                          (size_t)qb * kTileRows) +
+         (size_t)qb * kMaxK * (sizeof(float) + sizeof(int));
+}
+
+// Stages of the ring: as many as fit beside the rest, at most kMaxStages.
+int stages_for(int qb, int dim) {
+  const long long room =
+      (long long)kSmemLimit - kExtraBytes - (long long)side_bytes(qb, dim);
+  return (int)(room / kStageBytes < kMaxStages ? room / kStageBytes
+                                               : kMaxStages);
+}
+
+// One warp merges query b's tile scores sc[kTileRows] into its sorted
+// list (lv, li)[k]: every row that beats the list's k-th entry is
+// inserted at its rank.  Lane l owns rows l, l + 32, ...
+__device__ void merge_tile(const float* sc, float* lv, int* li, int k,
+                           int tile0, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  float tv = lv[k - 1];
+  int ti = li[k - 1];
+  for (int j = 0; j < kTileRows / 32; ++j) {
+    const int row = tile0 + j * 32 + lane;
+    const float v = sc[j * 32 + lane];
+    const bool in = row < n_rows;
+    unsigned m = __ballot_sync(0xffffffffu, in && better(v, row, tv, ti));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const float cv = __shfl_sync(0xffffffffu, v, src);
+      const int ci = __shfl_sync(0xffffffffu, row, src);
+      // its rank: the list entries that beat it (the list is sorted)
+      const int e0 = lane, e1 = lane + 32;
+      const bool b0 = e0 < k && better(lv[e0], li[e0], cv, ci);
+      const bool b1 = e1 < k && better(lv[e1], li[e1], cv, ci);
+      const int pos = __popc(__ballot_sync(0xffffffffu, b0)) +
+                      __popc(__ballot_sync(0xffffffffu, b1));
+      const bool s0 = e0 >= pos && e0 < k - 1, s1 = e1 >= pos && e1 < k - 1;
+      const float v0 = s0 ? lv[e0] : 0.f, v1 = s1 ? lv[e1] : 0.f;
+      const int i0 = s0 ? li[e0] : 0, i1 = s1 ? li[e1] : 0;
+      __syncwarp();
+      if (s0) { lv[e0 + 1] = v0; li[e0 + 1] = i0; }
+      if (s1) { lv[e1 + 1] = v1; li[e1 + 1] = i1; }
+      if (lane == 0) { lv[pos] = cv; li[pos] = ci; }
+      __syncwarp();
+      tv = lv[k - 1];
+      ti = li[k - 1];
+      m &= ~(1u << src);
+      m &= __ballot_sync(0xffffffffu, in && better(v, row, tv, ti));
+    }
   }
 }
 
-// Shared memory: q^ [bq][d], then the tile's scores [bq][kTileRows].
-// k == 0: dense mode, out_scores [B,N].  k > 0: partials
-// part_vals / part_idx [B, n_tiles, k].  NV: float4 a lane holds of one
-// row (d <= 128 NV); a warp scores kRowVecs / NV rows at a time, so each
-// q^ value read from shared memory serves that many rows.
-template <int NV>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory: the ring [stages][kTileRows][kDK] (1024-byte aligned,
+// swizzled), q^ [QB][dpad], the tile's scores [QB][kTileRows], the lists'
+// values and indices [QB][kMaxK], one mbarrier a stage.  k == 0: dense
+// mode, out_scores [bq, n_rows].  k > 0: partials part_vals / part_idx
+// [bq, gridDim.x, k], one sorted list per segment of tiles_per_block tiles.
+template <int QB>
+__global__ void __launch_bounds__(kThreads, 1)
 cosine_score_tile(const float* __restrict__ query,
-                  const float* __restrict__ store, int bq, int n_rows,
-                  int dim, int count, int k, int n_tiles,
-                  float* __restrict__ out_scores,
+                  const __grid_constant__ CUtensorMap store_map, int bq,
+                  int n_rows, int dim, int count, int k, int tiles_per_block,
+                  int stages, float* __restrict__ out_scores,
                   float* __restrict__ part_vals,
                   int* __restrict__ part_idx) {
-  extern __shared__ float4 smem4[];
-  float* qn = reinterpret_cast<float*>(smem4);
-  float* tile = qn + bq * dim;
+  extern __shared__ uint8_t smem_raw[];
+  float* ring = reinterpret_cast<float*>(
+      smem_raw + ((1024 - __cvta_generic_to_shared(smem_raw) % 1024) % 1024));
+  const uint32_t ring_s = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const int dpad = padded_dim(dim);
+  float* qn = ring + stages * kTileRows * kDK;
+  float* sc = qn + QB * dpad;
+  float* lv = sc + QB * kTileRows;
+  int* li = reinterpret_cast<int*>(lv + QB * kMaxK);
+  const uint32_t full = static_cast<uint32_t>(
+      __cvta_generic_to_shared(li + QB * kMaxK) + 7) & ~7u;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nvec = dim >> 2;
-  const int tile0 = blockIdx.x * kTileRows;
+  const int n_tiles = (n_rows + kTileRows - 1) / kTileRows;
+  const int t_begin = blockIdx.x * tiles_per_block;
+  const int t_end = min(t_begin + tiles_per_block, n_tiles);
+  const int n_chunks = dpad / kDK;
+  const int n_steps = (t_end - t_begin) * n_chunks;
 
-  // 1. normalise the queries into shared memory, one warp per query
-  for (int b = warp; b < bq; b += kWarps) {
-    const float4* src = reinterpret_cast<const float4*>(query + (size_t)b * dim);
-    float ss = 0.f;
-    for (int c = lane; c < nvec; c += 32) {
-      float4 x = src[c];
-      ss += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+  // step j into its stage, by thread 0: tile t_begin + j / n_chunks,
+  // columns (j % n_chunks) * kDK.  Nothing is read when count is 0.
+  auto fetch = [&](int j) {
+    const int slot = j % stages;
+    if (count > 0) {
+      mbar_expect(full + 8 * slot, kStageBytes);
+      tma_load(ring_s + slot * kStageBytes, &store_map, (j % n_chunks) * kDK,
+               (t_begin + j / n_chunks) * kTileRows, full + 8 * slot);
+    } else {
+      mbar_expect(full + 8 * slot, 0);
     }
-    const float inv = rsqrtf(warp_sum(ss) + 1e-12f);
-    float4* dst = reinterpret_cast<float4*>(qn + b * dim);
-    for (int c = lane; c < nvec; c += 32) {
-      float4 x = src[c];
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < stages - 1 && j < n_steps; ++j) fetch(j);
+  }
+
+  // q^ into shared memory, zero past bq and past dim; the lists empty
+  for (int b = warp; b < QB; b += kWarps) {
+    const float4* src =
+        reinterpret_cast<const float4*>(query + (size_t)b * dim);
+    float ss = 0.f;
+    if (b < bq)
+      for (int c = lane; c < dim / 4; c += 32) {
+        const float4 x = src[c];
+        ss += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
+      }
+    const float inv = b < bq ? rsqrtf(warp_sum(ss) + 1e-12f) : 0.f;
+    float4* dst = reinterpret_cast<float4*>(qn + b * dpad);
+    for (int c = lane; c < dpad / 4; c += 32) {
+      const float4 x = b < bq && c < dim / 4 ? src[c]
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
       dst[c] = make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
     }
   }
-  __syncthreads();
+  for (int i = threadIdx.x; i < QB * kMaxK; i += kThreads) {
+    lv[i] = -CUDART_INF_F;
+    li[i] = kNoIndex;
+  }
 
-  // 2. score the tile: a warp per group of R rows, the rows in registers
-  constexpr int R = kRowVecs / NV;
-  const float4* q4 = reinterpret_cast<const float4*>(qn);
-  for (int r0 = warp * kRowsPerWarp; r0 < (warp + 1) * kRowsPerWarp;
-       r0 += R) {
-    if (tile0 + r0 >= count) {           // all masked or past the store:
-      for (int i = 0; i < R; ++i) {      // no need to read the rows
-        const float s = tile0 + r0 + i >= n_rows ? -CUDART_INF_F : kMasked;
-        for (int b = lane; b < bq; b += 32) tile[b * kTileRows + r0 + i] = s;
-      }
-      continue;
-    }
-    float4 x[R][NV];
+  float acc[kRT][QB];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = tile0 + r0 + i;
-      const float4* s4 =
-          reinterpret_cast<const float4*>(store + (size_t)row * dim);
+  for (int i = 0; i < kRT; ++i)
 #pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int c = lane + 32 * j;
-        x[i][j] = row < count && c < nvec ? s4[c]
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-    for (int b = 0; b < bq; ++b) {
-      const float4* qb = q4 + b * nvec;
-      float acc[R];
+    for (int b = 0; b < QB; ++b) acc[i][b] = 0.f;
+  // this thread's rows of a tile
+  int rr[kRT];
 #pragma unroll
-      for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kRT; ++i) rr[i] = warp * 32 * kRT + i * 32 + lane;
+
+  for (int s = 0; s < n_steps; ++s) {
+    __syncthreads();                     // step s - 1's stage is read: it
+    if (threadIdx.x == 0 && s + stages - 1 < n_steps)   // takes step
+      fetch(s + stages - 1);                            // s + stages - 1
+    mbar_wait(full + 8 * (s % stages), (s / stages) & 1);   // step s landed
+
+    const int tile = t_begin + s / n_chunks, chunk = s % n_chunks;
+    const float* st = ring + (s % stages) * kTileRows * kDK;
+    const float* qs = qn + chunk * kDK;
 #pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int c = lane + 32 * j;
-        if (c < nvec) {
-          const float4 y = qb[c];
+    for (int kk = 0; kk < kDK / 4; ++kk) {
+      float4 x[kRT];
+      // row r's 16-byte chunk c lies at chunk c ^ (r % 8) of its 128 B
 #pragma unroll
-          for (int i = 0; i < R; ++i)
-            acc[i] += x[i][j].x * y.x + x[i][j].y * y.y + x[i][j].z * y.z +
-                      x[i][j].w * y.w;
-        }
-      }
+      for (int i = 0; i < kRT; ++i)
+        x[i] = *reinterpret_cast<const float4*>(
+            st + rr[i] * kDK + ((kk ^ (rr[i] & 7)) << 2));
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
+      for (int b = 0; b < QB; ++b) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(qs + b * dpad + kk * 4);
 #pragma unroll
-        for (int i = 0; i < R; ++i)
-          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int row = tile0 + r0 + i;
-          tile[b * kTileRows + r0 + i] =
-              row >= n_rows ? -CUDART_INF_F : (row >= count ? kMasked : acc[i]);
+        for (int i = 0; i < kRT; ++i) {
+          float a = acc[i][b];
+          a = fmaf(x[i].x, y.x, a);
+          a = fmaf(x[i].y, y.y, a);
+          a = fmaf(x[i].z, y.z, a);
+          a = fmaf(x[i].w, y.w, a);
+          acc[i][b] = a;
         }
       }
     }
-  }
-  __syncthreads();
-
-  // 3a. dense mode: copy the tile out, coalesced
-  if (k == 0) {
-    for (int b = 0; b < bq; ++b)
-      for (int r = threadIdx.x; r < kTileRows; r += kThreads)
-        if (tile0 + r < n_rows)
-          out_scores[(size_t)b * n_rows + tile0 + r] = tile[b * kTileRows + r];
-    return;
-  }
-
-  // 3b. top-k of the tile: one warp per query, k rounds of a warp argmax;
-  // lane l owns rows l, l+32, ... so a lane scans in ascending row order
-  for (int b = warp; b < bq; b += kWarps) {
-    float* sc = tile + b * kTileRows;
-    const size_t base = ((size_t)b * n_tiles + blockIdx.x) * k;
-    for (int j = 0; j < k; ++j) {
-      float v = -CUDART_INF_F;
-      int i = kNoIndex;
-      for (int r = lane; r < kTileRows; r += 32) {
-        const float s = sc[r];
-        if (s > v) { v = s; i = r; }
+    if (chunk != n_chunks - 1) continue;
+    // the tile is scored: mask, then write it out or merge its top-k
+    const int tile0 = tile * kTileRows;
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < kRT; ++i) {
+        const int row = tile0 + rr[i];
+#pragma unroll
+        for (int b = 0; b < QB; ++b)
+          if (b < bq && row < n_rows)
+            out_scores[(size_t)b * n_rows + row] =
+                row >= count ? kMasked : acc[i][b];
       }
-      warp_best(v, i);
-      if (lane == 0) {
-        part_vals[base + j] = v;
-        part_idx[base + j] = i == kNoIndex ? kNoIndex : tile0 + i;
-        if (i != kNoIndex) sc[i] = -CUDART_INF_F;   // taken
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRT; ++i) {
+        const int row = tile0 + rr[i];
+#pragma unroll
+        for (int b = 0; b < QB; ++b)
+          sc[b * kTileRows + rr[i]] =
+              row >= n_rows ? -CUDART_INF_F
+                            : (row >= count ? kMasked : acc[i][b]);
       }
-      __syncwarp();
+      __syncthreads();
+      // the next write of sc is past the next step's barrier
+      for (int b = warp; b < bq; b += kWarps)
+        merge_tile(sc + b * kTileRows, lv + b * kMaxK, li + b * kMaxK, k,
+                   tile0, n_rows);
+    }
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int b = 0; b < QB; ++b) acc[i][b] = 0.f;
+  }
+  if (k > 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < bq * k; i += kThreads) {
+      const int b = i / k, j = i % k;
+      const size_t o = ((size_t)b * gridDim.x + blockIdx.x) * k + j;
+      part_vals[o] = lv[b * kMaxK + j];
+      part_idx[o] = li[b * kMaxK + j];
     }
   }
 }
 
 // One block per query: k rounds, each picking the best head among the
-// n_tiles sorted partial lists.  Shared memory: one head per tile.
-__global__ void __launch_bounds__(kThreads)
+// n_parts sorted partial lists.  Shared memory: one head per list.
+constexpr int kMergeThreads = 256;
+constexpr int kMergeWarps = kMergeThreads / 32;
+
+__global__ void __launch_bounds__(kMergeThreads)
 cosine_topk_merge(const float* __restrict__ part_vals,
-                  const int* __restrict__ part_idx, int n_tiles, int k,
+                  const int* __restrict__ part_idx, int n_parts, int k,
                   float* __restrict__ vals, int* __restrict__ idx) {
   extern __shared__ int heads[];
-  __shared__ float wv[kWarps];
-  __shared__ int wi[kWarps];
-  __shared__ int wt[kWarps];
+  __shared__ float wv[kMergeWarps];
+  __shared__ int wi[kMergeWarps];
+  __shared__ int wt[kMergeWarps];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float* pv = part_vals + (size_t)b * n_tiles * k;
-  const int* pi = part_idx + (size_t)b * n_tiles * k;
-  for (int t = threadIdx.x; t < n_tiles; t += kThreads) heads[t] = 0;
+  const float* pv = part_vals + (size_t)b * n_parts * k;
+  const int* pi = part_idx + (size_t)b * n_parts * k;
+  for (int t = threadIdx.x; t < n_parts; t += kMergeThreads) heads[t] = 0;
   __syncthreads();
   for (int j = 0; j < k; ++j) {
     float v = -CUDART_INF_F;
     int i = kNoIndex, tb = -1;
-    for (int t = threadIdx.x; t < n_tiles; t += kThreads) {
+    for (int t = threadIdx.x; t < n_parts; t += kMergeThreads) {
       const int h = heads[t];
       if (h < k) {
         const float w = pv[(size_t)t * k + h];
@@ -235,7 +356,7 @@ cosine_topk_merge(const float* __restrict__ part_vals,
     if (lane == 0) { wv[warp] = v; wi[warp] = i; wt[warp] = tb; }
     __syncthreads();
     if (threadIdx.x == 0) {
-      for (int w = 1; w < kWarps; ++w)
+      for (int w = 1; w < kMergeWarps; ++w)
         if (better(wv[w], wi[w], v, i)) { v = wv[w]; i = wi[w]; tb = wt[w]; }
       vals[(size_t)b * k + j] = v;
       idx[(size_t)b * k + j] = i;
@@ -245,23 +366,43 @@ cosine_topk_merge(const float* __restrict__ part_vals,
   }
 }
 
-size_t score_smem_bytes(int bq, int dim) {
-  return (size_t)bq * (dim + kTileRows) * sizeof(float);
+// A 2-D map of the store's first max(count, 1) rows [rows][dim] float32
+// that loads [256 rows][32 floats] boxes, 128-byte swizzled, zero past
+// the rows and past dim.
+bool encode_store_map(CUtensorMap* map, const float* store, int count,
+                      int dim) {
+  const PFN_cuTensorMapEncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)dim,
+                              (cuuint64_t)(count > 0 ? count : 1)};
+  const cuuint64_t strides[1] = {(cuuint64_t)dim * 4};
+  const cuuint32_t box[2] = {kDK, kTileRows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<float*>(store), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NV>
-int launch_score(const float* query, const float* store, int bq, int n_rows,
-                 int dim, int count, int k, float* out_scores,
-                 float* part_vals, int* part_idx, cudaStream_t stream) {
+template <int QB>
+int launch_score(const float* query, const CUtensorMap& map, int bq,
+                 int n_rows, int dim, int count, int k, int tiles_per_block,
+                 float* out_scores, float* part_vals, int* part_idx,
+                 cudaStream_t stream) {
   const int n_tiles = (n_rows + kTileRows - 1) / kTileRows;
-  const size_t smem = score_smem_bytes(bq, dim);
+  const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
+  const int stages = stages_for(QB, dim);
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kExtraBytes + (size_t)stages * kStageBytes + side_bytes(QB, dim);
   cudaError_t err = cudaFuncSetAttribute(
-      cosine_score_tile<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cosine_score_tile<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cosine_score_tile<NV><<<n_tiles, kThreads, smem, stream>>>(
-      query, store, bq, n_rows, dim, count, k, n_tiles, out_scores,
-      part_vals, part_idx);
+  cosine_score_tile<QB><<<grid, kThreads, smem, stream>>>(
+      query, map, bq, n_rows, dim, count, k, tiles_per_block, stages,
+      out_scores, part_vals, part_idx);
   return (int)cudaGetLastError();
 }
 
@@ -270,39 +411,57 @@ int launch_score(const float* query, const float* store, int bq, int n_rows,
 extern "C" {
 
 int cosine_tile_rows() { return kTileRows; }
-int cosine_max_dim() { return 32 * 4 * kRowVecs; }
+int cosine_max_dim() { return kMaxDim; }
 
-// Scores bq queries against n_rows store rows.  k == 0 writes the dense
-// out_scores [bq, n_rows]; k > 0 writes partials [bq, n_tiles, k] with
-// n_tiles = ceil(n_rows / cosine_tile_rows()).
+// The most queries one launch takes at this width: a power of two whose
+// q^, scores and lists leave room for two stages of the ring.
+int cosine_queries_per_launch(int dim) {
+  int qb = kMaxQueries;
+  while (qb > 1 && stages_for(qb, dim) < 2) qb /= 2;
+  return qb;
+}
+
+// Scores bq queries against n_rows store rows, one block per segment of
+// tiles_per_block tiles of cosine_tile_rows() rows.  k == 0 writes the
+// dense out_scores [bq, n_rows]; k > 0 writes partials [bq, n_segments, k]
+// with n_segments = ceil(ceil(n_rows / tile rows) / tiles_per_block).
 int cosine_score_tile_launch(const float* query, const float* store, int bq,
                              int n_rows, int dim, int count, int k,
-                             float* out_scores, float* part_vals,
-                             int* part_idx, void* stream) {
-  const int nv = (dim / 4 + 31) / 32;    // float4 per lane for one row
+                             int tiles_per_block, float* out_scores,
+                             float* part_vals, int* part_idx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nv <= 4)
-    return launch_score<4>(query, store, bq, n_rows, dim, count, k,
-                           out_scores, part_vals, part_idx, st);
-  if (nv <= 8)
-    return launch_score<8>(query, store, bq, n_rows, dim, count, k,
-                           out_scores, part_vals, part_idx, st);
-  if (nv <= 16)
-    return launch_score<16>(query, store, bq, n_rows, dim, count, k,
-                            out_scores, part_vals, part_idx, st);
+  if (bq < 1 || bq > cosine_queries_per_launch(dim) || dim % 4 ||
+      dim > kMaxDim || k < 0 || k > kMaxK || tiles_per_block < 1 ||
+      count < 0 || count > n_rows)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!encode_store_map(&map, store, count, dim))
+    return (int)cudaErrorNotSupported;
+#define VG_COSINE_LAUNCH(QB)                                               \
+  if (bq <= QB)                                                            \
+    return launch_score<QB>(query, map, bq, n_rows, dim, count, k,         \
+                            tiles_per_block, out_scores, part_vals,        \
+                            part_idx, st);
+  VG_COSINE_LAUNCH(1)
+  VG_COSINE_LAUNCH(2)
+  VG_COSINE_LAUNCH(4)
+  VG_COSINE_LAUNCH(8)
+  VG_COSINE_LAUNCH(16)
+  VG_COSINE_LAUNCH(32)
+#undef VG_COSINE_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 int cosine_topk_merge_launch(const float* part_vals, const int* part_idx,
-                             int bq, int n_tiles, int k, float* vals,
+                             int bq, int n_parts, int k, float* vals,
                              int* idx, void* stream) {
-  const size_t smem = (size_t)n_tiles * sizeof(int);
+  const size_t smem = (size_t)n_parts * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       cosine_topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cosine_topk_merge<<<bq, kThreads, smem, (cudaStream_t)stream>>>(
-      part_vals, part_idx, n_tiles, k, vals, idx);
+  cosine_topk_merge<<<bq, kMergeThreads, smem, (cudaStream_t)stream>>>(
+      part_vals, part_idx, n_parts, k, vals, idx);
   return (int)cudaGetLastError();
 }
 

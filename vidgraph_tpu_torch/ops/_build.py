@@ -2,8 +2,9 @@
 
 At first use, ``nvcc`` compiles each source into an object, all sources at
 once in parallel processes, and links the objects into one shared library
-with a plain C interface, named by the SHA-256 of the sources
-(``build/kernels/libvidgraph_kernels_<sha>.so`` at the repository root);
+with a plain C interface, named by the SHA-256 of the sources and the
+headers beside them (``build/kernels/libvidgraph_kernels_<sha>.so`` at the
+repository root);
 ``ctypes`` loads it.  A library whose sources have not changed is reused.
 ``ptxas`` reports each kernel's registers and shared memory into the
 ``.log`` beside the library.
@@ -51,12 +52,15 @@ def _sources():
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_int64
-    lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+    lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, i, p, p, p,
+                                             p]
     lib.cosine_score_tile_launch.restype = i
     lib.cosine_topk_merge_launch.argtypes = [p, p, i, i, i, p, p, p]
     lib.cosine_topk_merge_launch.restype = i
     lib.cosine_tile_rows.restype = i
     lib.cosine_max_dim.restype = i
+    lib.cosine_queries_per_launch.argtypes = [i]
+    lib.cosine_queries_per_launch.restype = i
     lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
     lib.flash_bwd_delta_launch.argtypes = [p, p, p, p, i, i, i, i, p]
@@ -121,7 +125,7 @@ def library() -> ctypes.CDLL:
             return _lib
         srcs = _sources()
         digest = hashlib.sha256()
-        for src in srcs:
+        for src in sorted([*srcs, *CSRC.glob("*.cuh")]):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         tag = digest.hexdigest()[:16]

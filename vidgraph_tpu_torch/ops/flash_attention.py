@@ -22,7 +22,12 @@ probabilities in registers (FlashAttention's online softmax), read q, k, v
 once per 64-row tile of the other side and write only the outputs; the
 backward recomputes the probabilities from one float32 residual per row,
 the log-sum-exp ``L`` [B, h, T] (the TPU kernel saves the running max and
-sum separately).
+sum separately).  What is left is tensor-core work: the forward runs both
+products on Hopper's ``wgmma`` (one warpgroup per 64 query rows, P from
+registers, V read in place through the descriptor's transpose bit) with K
+and V brought by TMA into a three-stage swizzled ring (the tensor maps
+are encoded by libcuda's ``cuTensorMapEncodeTiled``, looked up at run
+time).
 
 Numerics: q, k, v and the output are bfloat16 [B, T, h, hd], hd 64 (the
 base, chat and mid-scale widths) or 128 (``CaptionerConfig.large()``);

@@ -7,16 +7,19 @@ and the two-stage ``lax.top_k`` that ``_fused_cosine_topk_count`` and
 ``csrc/topk_cosine.cu``:
 
 * ``cosine_score_tile`` normalises the queries (``q * rsqrt(sum q^2 +
-  1e-12)``), scores a tile of 256 store rows per block, writes -1e30 for
-  rows at or past ``count`` without reading them, and then either writes
-  the dense scores or the tile's top-k partials;
+  1e-12)``) and streams the store once, one block per SM walking a segment
+  of 256-row tiles through a ring of stages filled by TMA, with the scores
+  register-tiled as an SGEMM (2 rows x the batch a thread).  Rows at or
+  past ``count`` score -1e30 and are never read.  It writes either the
+  dense scores or each segment's top-k partials;
 * ``cosine_topk_merge`` merges the partials into ``(values [B,k] f32,
   indices [B,k] int32)``, score descending, ties to the lower row index
   as ``lax.top_k`` breaks them.
 
 What bounds it on the H100 is the store read: 200,000 x 512 float32 rows
 are 410 MB a call, so the kernel reads each row once for the whole query
-batch and never writes the [B,N] scores when it only needs the top-k.
+batch, keeps the next slices in flight while it scores this one, and never
+writes the [B,N] scores when it only needs the top-k.
 
 Dispatch: a tensor on the CPU takes the plain version (``cosine_scores_ref``
 / ``cosine_topk_ref``: a float32 ``torch.matmul``, the mask, a stable sort);
@@ -27,7 +30,8 @@ run can show which one served it.
 Limits of the kernel, checked before each launch: float32, contiguous,
 ``d`` a multiple of 4 and at most 2048, ``k <= 64`` (the serving path asks
 for ``max(top_k_chunks, rerank_pool)``, 3 to 5 in the shipped configs).
-Query batches beyond what shared memory holds are split into launches.
+Query batches beyond what one launch takes (32 at d <= 512, fewer above,
+``cosine_queries_per_launch``) are split into launches.
 """
 from __future__ import annotations
 
@@ -40,8 +44,6 @@ from . import _build
 NEG = -1e30
 NO_INDEX = 0x7FFFFFFF          # a partial slot with no row (csrc kNoIndex)
 K_MAX = 64
-_MAX_QUERIES_PER_LAUNCH = 32
-_SMEM_BYTES = 232_448          # shared memory a block may opt into on sm_90
 
 # launches of cosine_score_tile by mode, and of cosine_topk_merge
 LAUNCHES: Dict[str, int] = {"score_topk": 0, "score_dense": 0, "merge": 0}
@@ -155,18 +157,27 @@ def _check_kernel_inputs(query: torch.Tensor, store: torch.Tensor) -> int:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    max_dim = _build.library().cosine_max_dim()
+    lib = _build.library()
+    max_dim = lib.cosine_max_dim()
     if d % 4 or d > max_dim:
         raise ValueError(f"d={d}: the kernel takes multiples of 4 up to "
                          f"{max_dim}")
-    tile = _build.library().cosine_tile_rows()
-    per_launch = min(_MAX_QUERIES_PER_LAUNCH,
-                     _SMEM_BYTES // (4 * (d + tile)))
-    n_tiles = -(-store.shape[0] // tile)
-    if n_tiles * 4 > _SMEM_BYTES:
-        raise ValueError(f"{store.shape[0]} rows exceed the merge kernel's "
-                         f"{_SMEM_BYTES // 4 * tile} row bound")
-    return per_launch
+    return lib.cosine_queries_per_launch(d)
+
+
+def segment_tiles(n: int, device: torch.device) -> int:
+    """Tiles of ``cosine_tile_rows()`` rows that one block of the
+    persistent grid scores: the store's tiles spread over the card's SMs.
+    A segment is ``segment_tiles * cosine_tile_rows()`` rows and gets one
+    top-k partial list."""
+    n_tiles = -(-n // _build.library().cosine_tile_rows())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return -(-n_tiles // sms)
+
+
+def segment_rows(n: int, device: torch.device) -> int:
+    """Store rows per top-k partial list (see ``segment_tiles``)."""
+    return segment_tiles(n, device) * _build.library().cosine_tile_rows()
 
 
 def _cuda_scores(query: torch.Tensor, store: torch.Tensor,
@@ -176,13 +187,14 @@ def _cuda_scores(query: torch.Tensor, store: torch.Tensor,
     b, n = query.shape[0], store.shape[0]
     d = query.shape[1]
     out = torch.empty((b, n), dtype=torch.float32, device=query.device)
+    tpb = segment_tiles(n, query.device)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
         for s in range(0, b, per_launch):
             qc = query[s:s + per_launch]
             _build.check(lib.cosine_score_tile_launch(
                 qc.data_ptr(), store.data_ptr(), qc.shape[0], n, d, count,
-                0, out[s].data_ptr(), None, None, stream),
+                0, tpb, out[s].data_ptr(), None, None, stream),
                 "cosine_score_tile")
             LAUNCHES["score_dense"] += 1
     return out
@@ -198,23 +210,25 @@ def _cuda_topk(query: torch.Tensor, store: torch.Tensor, k: int,
 # and timed on its own.
 def topk_partials(query: torch.Tensor, store: torch.Tensor, k: int,
                   count: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``cosine_score_tile`` in top-k mode: each tile's top k as
-    ``(part_vals [B,n_tiles,k] f32, part_idx [B,n_tiles,k] int32)``."""
+    """``cosine_score_tile`` in top-k mode: each segment's top k as
+    ``(part_vals [B,n_seg,k] f32, part_idx [B,n_seg,k] int32)``, a segment
+    being ``segment_rows(n, device)`` rows."""
     per_launch = _check_kernel_inputs(query, store)
     lib = _build.library()
     b, n = query.shape[0], store.shape[0]
     d = query.shape[1]
-    n_tiles = -(-n // lib.cosine_tile_rows())
     dev = query.device
-    part_vals = torch.empty((b, n_tiles, k), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, n_tiles, k), dtype=torch.int32, device=dev)
+    tpb = segment_tiles(n, dev)
+    n_seg = -(-n // (tpb * lib.cosine_tile_rows()))
+    part_vals = torch.empty((b, n_seg, k), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((b, n_seg, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for s in range(0, b, per_launch):
             qc = query[s:s + per_launch]
             _build.check(lib.cosine_score_tile_launch(
                 qc.data_ptr(), store.data_ptr(), qc.shape[0], n, d, count, k,
-                None, part_vals[s].data_ptr(), part_idx[s].data_ptr(),
+                tpb, None, part_vals[s].data_ptr(), part_idx[s].data_ptr(),
                 stream), "cosine_score_tile")
             LAUNCHES["score_topk"] += 1
     return part_vals, part_idx
@@ -224,13 +238,13 @@ def topk_merge(part_vals: torch.Tensor, part_idx: torch.Tensor,
                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cosine_topk_merge``: the partials' top k, ``(values [B,k] f32,
     indices [B,k] int32)``."""
-    b, n_tiles = part_vals.shape[:2]
+    b, n_parts = part_vals.shape[:2]
     dev = part_vals.device
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _build.check(_build.library().cosine_topk_merge_launch(
-            part_vals.data_ptr(), part_idx.data_ptr(), b, n_tiles, k,
+            part_vals.data_ptr(), part_idx.data_ptr(), b, n_parts, k,
             vals.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream().cuda_stream), "cosine_topk_merge")
         LAUNCHES["merge"] += 1
@@ -240,9 +254,9 @@ def topk_merge(part_vals: torch.Tensor, part_idx: torch.Tensor,
 def topk_partials_ref(query: torch.Tensor, store: torch.Tensor, k: int,
                       count: int, tile: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``topk_partials`` for tiles of ``tile`` rows: rows
-    past the store score -inf at index ``NO_INDEX``, as the kernel writes
-    them."""
+    """Plain version of ``topk_partials`` for segments of ``tile`` rows
+    (``segment_rows``): rows past the store score -inf at index
+    ``NO_INDEX``, as the kernel writes them."""
     scores = cosine_scores_ref(query, store, count)
     b, n = scores.shape
     n_tiles = -(-n // tile)

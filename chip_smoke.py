@@ -90,15 +90,17 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    ``generate`` are timed;
 12. the w8a16 kernel (``ops/q8_matmul.py``) against its plain version on
    the card: the eight (K, N) of the block matrices of
-   ``CaptionerConfig.large()`` and ``base()`` x M in {1, 5, 8, 32, 64},
+   ``CaptionerConfig.large()`` and ``base()`` x M in ``Q8_CHECK_M``,
    plus a column of zeros (the scale's floor, 1e-8) and |x| up to 1e3:
-   max |err| <= 1e-4 x max |plain|, and two runs equal bit for bit.  Then
-   device times per call (``graph_ms``; every call of a replay reads
+   max |err| <= 1e-4 x max |plain|, two runs equal bit for bit, and the
+   bfloat16 output equal to the float32 output's ``.to(bfloat16)``.
+   Then device times per call (``graph_ms``; every call of a replay reads
    another copy of the weights, 20 copies, so that the weights of
    ``large()`` come from device memory as they do in a decode) of the
-   kernel, the plain version, the plain ``a16`` expression, and two
-   yardsticks the port never calls: cuBLAS ``x_bf16 @ w_bf16`` and
-   ``torch._weight_int8pack_mm`` (null where this torch does not run it);
+   kernel (float32 and bfloat16 out), the plain version, the plain
+   ``a16`` expression, and two yardsticks the port never calls: cuBLAS
+   ``x_bf16 @ w_bf16`` and ``torch._weight_int8pack_mm`` (null where this
+   torch does not run it); and the wrapper's host time a call;
 13. quantised serving at full width: seed weights for ``ViTConfig.b32()``
    and ``CaptionerConfig.large()`` in bfloat16, written as a JAX-format
    npz and loaded by ``TPUVLMClient(checkpoint=..., param_dtype=bfloat16,
@@ -108,12 +110,17 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    ``generate`` at B = 4 and 8, 64 new bytes, between a reset and a read
    of the counts: the kernel's launches equal 4 products x 24 layers x the
    decode steps, plus the prefill's when its B x 9 rows are at most 64,
-   and the plain version serves nothing.  (iii) Teacher-forced ``forward``
+   and the plain version serves nothing; one ``wdot(a16p)`` product at
+   each of a ``large()`` layer's four shapes (M 8, bf16 out), captured
+   into a CUDA graph, is one kernel node, the q8 kernel's, and nothing
+   else.  (iii) Teacher-forced ``forward``
    logits (one sequence a call, 40 rows): each int8 mode against bf16 by
    cosine, ``a16p`` against ``a16`` within ``Q8_LOGIT_TOL``, and a planted
    fault (the kernel without its scale) past it.  (iv) ms/step and
    tokens/s of the four modes at B = 8 and 32
-   (``scripts/profile_torch_int8_decode.py::bench_decode``).  (v) The
+   (``scripts/profile_torch_int8_decode.py::bench_decode``), and ``a16p``'s
+   kernel launches a decode step at B = 8 from one profiled call, whose
+   q8 kernels on the device number 96 a decode step.  (v) The
    CLI's ``vlm`` with ``vlm.quantize: int8`` at ``base()`` width on phase
    11's frame source;
 14. the FlashAttention backward kernels (``flash_bwd_delta``,
@@ -718,6 +725,33 @@ def device_kernels(fn) -> list:
         torch.cuda.synchronize()
     return sorted({e.name[:80] for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def graph_node_types(fn) -> list:
+    """The node types of ``fn()`` captured into a CUDA graph after a
+    warm-up call (``CU_GRAPH_NODE_TYPE_*``: 0 a kernel, 1 a copy, 2 a
+    memset): every piece of device work it issues, whichever library
+    issues it, read from the driver's graph, not from a profiler."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
 
 
 def library_sdpa(q, k, v, mask) -> dict:
@@ -1375,8 +1409,9 @@ Q8_COPIES = 20
 # rows held against the plain version: decode steps, 5 (no multiple of 16),
 # and what phase 13 gives the kernel besides: B = 4 (generate's steps, and
 # its prefill of 4 x 9 = 36 rows) and sequence_logits' 40.  Between them
-# every row-tile count (1 to 4 tiles of 16) runs.
-Q8_CHECK_M = (1, 4, 5, 8, 32, 36, 40, 64)
+# every product width (8, 16, 32, 64 rows) runs, full and ragged (33, 63:
+# the rows past M zero-filled by TMA).
+Q8_CHECK_M = (1, 4, 5, 8, 32, 33, 36, 40, 63, 64)
 
 
 def rotating(fn, items):
@@ -1384,6 +1419,20 @@ def rotating(fn, items):
     calls reads another copy of the weights."""
     turn = itertools.cycle(items)
     return lambda: fn(next(turn))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` (the wrapper's checks, tables
+    and launch), enqueued back to back without a synchronise."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def check_q8(q8, x, q, s) -> tuple:
@@ -1432,10 +1481,20 @@ def phase_q8_matmul(seed: int, card: str) -> dict:
         s, s16 = wq.s, wq.s.to(bf16)
         for m in (1, 8, 32):
             x = activations(m, k)
+            got = q8.q8_matmul(x, qs[0], s)
+            got16 = q8.q8_matmul(x, qs[0], s, bf16)
+            torch.cuda.synchronize()
+            assert torch.equal(got16, got.to(bf16)), \
+                f"q8_matmul K{k} N{n} M{m}: bf16 output is not the " \
+                f"float32 output rounded"
             row = {
                 "kernel_ms": graph_ms(rotating(
                     lambda q: q8.q8_matmul(x, q, s), qs)),
-                "splits": q8.split_k(m, k, n),
+                "kernel_bf16_out_ms": graph_ms(rotating(
+                    lambda q: q8.q8_matmul(x, q, s, bf16), qs)),
+                "bf16_out_bit_equal": True,
+                "host_us": host_us(lambda: q8.q8_matmul(x, qs[0], s)),
+                "cluster": q8.plan(m, k, n).cluster,
                 "plain_ms": graph_ms(rotating(
                     lambda q: q8.q8_matmul_ref(x, q, s), qs)),
                 "a16_ms": graph_ms(rotating(
@@ -1476,9 +1535,11 @@ def phase_q8_matmul(seed: int, card: str) -> dict:
     log(f"phase 12: q8_matmul within {q8.TOL_REL} x max |plain| of the plain "
         f"version at {len(Q8_SHAPES)} (K, N) x M "
         f"{'/'.join(map(str, Q8_CHECK_M))} (worst max "
-        f"|err| / max |plain| {worst_rel:.3e}), two runs equal bit for bit; "
+        f"|err| / max |plain| {worst_rel:.3e}), two runs equal bit for bit, "
+        f"the bf16 output the float32 output rounded, bit for bit; "
         f"times on {card} (ms; device time per call, 20 calls replayed "
-        f"from a CUDA graph over 20 copies of the weights): "
+        f"from a CUDA graph over 20 copies of the weights; host_us: the "
+        f"wrapper's host time a call): "
         f"{json.dumps(rows)}")
     return {"rows": rows, "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "int8pack_reason": int8pack_reason}
@@ -1499,7 +1560,8 @@ def phase_quantized(seed: int, card: str) -> dict:
                                                      decode_steps, generate,
                                                      init_params)
     from vidgraph_tpu_torch.models.checkpoint import save_params
-    from vidgraph_tpu_torch.models.quant8 import is_q8, tree_bytes
+    from vidgraph_tpu_torch.models.quant8 import (is_q8, quantize_matrix,
+                                                  tree_bytes, wdot)
     from vidgraph_tpu_torch.models.vit import (ViTConfig, init_vision_tower,
                                                param_tree)
     from vidgraph_tpu_torch.ops import q8_matmul as q8
@@ -1592,6 +1654,27 @@ def phase_quantized(seed: int, card: str) -> dict:
             log(f"phase 13: generate with qmode a16p: launches "
                 f"{json.dumps(launches)}")
 
+            # one product, one kernel on the device: wdot(a16p) at M 8 and
+            # bf16 out, captured into a CUDA graph, is one kernel node, the
+            # q8 kernel's (the wrapper counts one launch), with no
+            # reduction and no cast, at the four shapes of a large() layer
+            product_kernels = {}
+            for k, n in Q8_SHAPES[:4]:
+                w = quantize_matrix(torch.from_numpy(
+                    (rng.standard_normal((k, n)) * 0.02).astype(
+                        np.float32)).cuda())
+                x = torch.from_numpy(rng.standard_normal((8, k)).astype(
+                    np.float32)).cuda().to(torch.bfloat16)
+                q8.reset_counts()
+                nodes = graph_node_types(
+                    lambda: wdot(x, w, torch.bfloat16, "a16p"))
+                product_kernels[f"{k}x{n}"] = nodes
+                assert nodes == [0] and q8.LAUNCHES["q8_matmul"] == 2, \
+                    f"wdot(a16p) at ({k}, {n}): graph nodes {nodes}, " \
+                    f"{q8.LAUNCHES['q8_matmul']} launches for 2 calls"
+            log(f"phase 13: one wdot(a16p) product is one kernel node in a "
+                f"CUDA graph: {json.dumps(product_kernels)}")
+
             # (iii) logits: each int8 mode against bf16, a16p against a16,
             # and a planted fault
             vis = torch.from_numpy(rng.standard_normal(
@@ -1608,7 +1691,8 @@ def phase_quantized(seed: int, card: str) -> dict:
                    for m in qcfg}
             assert q8.LAUNCHES["q8_matmul"] == 4 * per_step, q8.LAUNCHES
             sound = q8.q8_matmul
-            q8.q8_matmul = lambda x, q, s: sound(x, q, torch.ones_like(s))
+            q8.q8_matmul = lambda x, q, s, *a: sound(x, q, torch.ones_like(s),
+                                                     *a)
             try:
                 fault = p8.sequence_logits(qtree, qcfg["a16p"], vis, toks)
             finally:
@@ -1650,6 +1734,23 @@ def phase_quantized(seed: int, card: str) -> dict:
             row = rates["int8_a16p"]["batches"][8]
             assert row["q8_launches_per_call"] == \
                 per_step * row["decode_steps"] and not row["q8_plain_calls"]
+            # every kernel launch a decode step, from one profiled call
+            profiled = p8.bench_decode(qtree, qcfg["a16p"], (8,), QUANT_NEW,
+                                       1, profiled=True)["batches"][8]
+            step_launches = {8: profiled["launches_per_step"],
+                             "device_busy_share":
+                             profiled["device_busy_share"],
+                             "q8_kernels": profiled["q8_kernel_events"],
+                             "decode_steps":
+                             profiled["profiled_decode_steps"]}
+            # the profiled call's q8 kernels on the device: 96 a decode
+            # step (B 8's prefill of 72 rows takes the a16 expression)
+            rows = 8 * (large.num_vision_tokens + 1)
+            want = per_step * profiled["profiled_decode_steps"] + (
+                per_step if rows <= q8.MAX_M else 0)
+            assert profiled["q8_kernel_events"] == want, \
+                f"{profiled['q8_kernel_events']} q8 kernels on the device " \
+                f"in a profiled a16p decode, {want} products"
             log(f"phase 13: decode at CaptionerConfig.large() width on "
                 f"{card}, {QUANT_NEW} new bytes: {json.dumps(rates)}")
             del clients, qtree, ftree, trees, got, ref, fault
@@ -1679,6 +1780,7 @@ def phase_quantized(seed: int, card: str) -> dict:
             os.chdir(old_cwd)
     return {"tree_bytes": nbytes, "int8_over_bf16_bytes": ratio,
             "clients": caption_s, "launches": launches, "logits": logits,
+            "a16p_launches_per_step": step_launches,
             "decode": rates}
 
 
@@ -2280,6 +2382,12 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "preprocess_frames", "route": "cuda",
          "source": "vidgraph_tpu_torch/csrc/preprocess.cu",
          "replaces": "vidgraph_tpu/ops/preprocess.py:30",
+         "redesigned": "a block a band of up to 8 output rows, its "
+                       "source rows staged once by bulk copies, the height "
+                       "pass in fp16 mma.sync, the width pass on "
+                       "neighbouring outputs, two blocks an SM",
+         "b160_ms": pre["b160_405x720_fast"]["kernel_ms"],
+         "b160_bound_ms": pre["b160_405x720_fast"]["bound_ms"],
          "launches": sum(c["preprocess"] for c in vision_counts),
          "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
          "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
@@ -2303,7 +2411,14 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "q8_matmul", "route": "cuda",
          "source": "vidgraph_tpu_torch/csrc/q8_matmul.cu",
          "replaces": "vidgraph_tpu/ops/q8_matmul.py:62",
+         "redesigned": "weights and x by TMA on mbarriers, wgmma with the "
+                       "int8 tile as A from registers, K split over a "
+                       "cluster reduced through distributed shared "
+                       "memory, one launch a product",
          "launches": sum(r["kernel"] for r in quant["launches"].values()),
+         "a16p_launches_per_step": quant["a16p_launches_per_step"],
+         "host_us": q8row["host_us"],
+         "bf16_out_ms": q8row["kernel_bf16_out_ms"],
          "max_abs_err": q8k["max_abs_err"],
          "max_rel_err": q8k["max_rel_err"],
          "ms": q8row["kernel_ms"], "plain_ms": q8row["plain_ms"],

@@ -2,7 +2,8 @@
 CUDA card.
 
     python3 scripts/compare_torch_kernels.py --parent DIR [--train]
-        [--rounds 2] [--jobs cosine,flash_fwd,short_attention,flash_bwd]
+        [--int8-decode] [--rounds 2]
+        [--jobs cosine,flash_fwd,short_attention,flash_bwd,q8,preprocess]
 
 ``DIR`` holds another commit of this repository (for example
 ``git archive <commit> | tar -x -C DIR``, in a directory ``.gitignore``
@@ -13,7 +14,7 @@ pairs), each in a fresh process that imports that tree's
 ``vidgraph_tpu_torch`` and builds its kernels into that tree's
 ``build/kernels``.  The shapes, checks and yardsticks are this tree's
 ``chip_smoke.py``'s; each process prints one JSON line with the jobs
-named by ``--jobs`` (all four by default):
+named by ``--jobs`` (the first four by default):
 
 * ``cosine``: phase 2's top-5 of the 200,000 x 512 float32 store at B 1
   and 16 and its dense scores at B 16, each held to the plain version
@@ -32,9 +33,21 @@ named by ``--jobs`` (all four by default):
   timed training shapes (``BWD_SHAPES[:BWD_TIMED]``): CUDA-event medians,
   and ``library_sdpa_train`` (SDPA's backward under autograd) beside it.
 
+* ``q8``: phase 12's w8a16 products (the eight block matrices of
+  ``large()`` and ``base()``, checked at ``Q8_CHECK_M`` rows), device time
+  at M 1, 8, 32 over 20 rotating weight copies with float32 out (every
+  tree's signature), the wrapper's host time a call, cuBLAS bf16 beside;
+  bfloat16 out where the tree takes ``out_dtype``;
+* ``preprocess``: phase 9's frames (5 and 160 of 405 x 720 -> 224, fast
+  and exact, 224^2, 120 x 160), each checked first, device time from
+  CUDA-graph replay and the CUDA-event median of a call.
+
 ``--train`` also runs each tree's ``scripts/profile_torch_train_step.py``
-(instruct and mid-scale steps with ``--flash``) in the same order.  The
-card's name and power limit head the output.
+(instruct and mid-scale steps with ``--flash``) in the same order, and
+``--int8-decode`` each tree's ``scripts/profile_torch_int8_decode.py
+--scale large --batches 8 32`` (ms/step, launches a step, busy share of
+the four int8 modes).  The card's name
+and power limit head the output.
 """
 from __future__ import annotations
 
@@ -172,10 +185,91 @@ def flash_bwd_job(smoke) -> dict:
     return bwd
 
 
+def q8_job(smoke) -> dict:
+    """Phase 12: the w8a16 product at the eight block matrices of large()
+    and base(), held to the plain version at ``Q8_CHECK_M`` rows (two runs
+    equal), then at M 1, 8, 32 the device time a call over 20 rotating
+    copies of the weights, float32 out as every tree takes it, the
+    wrapper's host time a call, and cuBLAS bf16 ``x @ w`` beside it; the
+    bfloat16-out time where the tree's ``q8_matmul`` takes ``out_dtype``."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+    from vidgraph_tpu_torch.models import quant8
+    from vidgraph_tpu_torch.ops import q8_matmul as q8
+
+    bf16 = torch.bfloat16
+    has_out = "out_dtype" in inspect.signature(q8.q8_matmul).parameters
+    rng = np.random.default_rng(5)
+    rows = {}
+    for k, n in smoke.Q8_SHAPES:
+        w = torch.from_numpy(rng.standard_normal(
+            (k, n), dtype=np.float32) * 0.02).cuda()
+        wq = quant8.quantize_matrix(w)
+        for m in smoke.Q8_CHECK_M:
+            x = torch.from_numpy(rng.standard_normal(
+                (m, k), dtype=np.float32)).to("cuda", bf16)
+            smoke.check_q8(q8, x, wq.q, wq.s)
+        qs = [wq.q.clone() for _ in range(smoke.Q8_COPIES)]
+        ws = [w.to(bf16) for _ in range(smoke.Q8_COPIES)]
+        s = wq.s
+        for m in (1, 8, 32):
+            x = torch.from_numpy(rng.standard_normal(
+                (m, k), dtype=np.float32)).to("cuda", bf16)
+            row = {"kernel_ms": graph_ms(smoke.rotating(
+                       lambda q: q8.q8_matmul(x, q, s), qs)),
+                   "host_us": smoke.host_us(
+                       lambda: q8.q8_matmul(x, qs[0], s)),
+                   "cublas_bf16_ms": graph_ms(smoke.rotating(
+                       lambda v: x @ v, ws))}
+            if has_out:
+                row["kernel_bf16_out_ms"] = graph_ms(smoke.rotating(
+                    lambda q: q8.q8_matmul(x, q, s, bf16), qs))
+            rows[f"K{k}_N{n}_M{m}"] = row
+        del qs, ws, w, wq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def preprocess_job(smoke) -> dict:
+    """Phase 9's shapes, each held to the plain version first: device time
+    a call (20 calls replayed from a CUDA graph) and the CUDA-event median
+    of one call."""
+    import numpy as np
+    import torch
+
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.ops import preprocess as pre
+
+    rng = np.random.default_rng(3)
+    rows = {}
+    for b, h, w, fast in smoke.PRE_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                          dtype=np.uint8)).cuda()
+        got = pre.preprocess_frames(x, 224, fast)
+        torch.cuda.synchronize()
+        ref = pre.preprocess_ref(x, 224, fast)
+        tol = pre.TOL_FAST if ref.dtype == torch.bfloat16 else pre.TOL_F32
+        err = float((got.float() - ref.float()).abs().max())
+        assert got.shape == ref.shape and err <= tol, (b, h, w, fast, err)
+        rows[f"b{b}_{h}x{w}_{'fast' if fast else 'exact'}"] = {
+            "max_abs_err": err,
+            "kernel_ms": graph_ms(lambda: pre.preprocess_frames(x, 224,
+                                                                fast)),
+            "call_ms": cuda_ms(lambda: pre.preprocess_frames(x, 224, fast))}
+        del x, got, ref
+    return rows
+
+
 JOBS = {"cosine": cosine_job, "flash_fwd": flash_fwd_job,
         "short_attention": lambda smoke: smoke.phase_short_attention(
             0, smoke.nvidia_smi()),
-        "flash_bwd": flash_bwd_job}
+        "flash_bwd": flash_bwd_job, "q8": q8_job,
+        "preprocess": preprocess_job}
+DEFAULT_JOBS = ("cosine", "flash_fwd", "short_attention", "flash_bwd")
 
 
 def worker(root: Path, jobs) -> dict:
@@ -201,7 +295,8 @@ def main() -> int:
     ap.add_argument("--parent", help="the other tree's root")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--train", action="store_true")
-    ap.add_argument("--jobs", default=",".join(JOBS))
+    ap.add_argument("--int8-decode", action="store_true")
+    ap.add_argument("--jobs", default=",".join(DEFAULT_JOBS))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     jobs = [j for j in args.jobs.split(",") if j]
@@ -236,15 +331,21 @@ def main() -> int:
         status |= res.returncode
         line = res.stdout.strip().splitlines()[-1:] or [res.stderr[-2000:]]
         print(f"{label}: {line[0]}", flush=True)
+    scripts = []
     if args.train:
+        scripts.append(("train", ["profile_torch_train_step.py"]))
+    if args.int8_decode:
+        scripts.append(("int8 decode", [
+            "profile_torch_int8_decode.py", "--scale", "large",
+            "--batches", "8", "32"]))
+    for name, cmd in scripts:
         for label, root in order:
             res = subprocess.run(
-                [sys.executable, str(root / "scripts" /
-                                     "profile_torch_train_step.py")],
+                [sys.executable, str(root / "scripts" / cmd[0]), *cmd[1:]],
                 capture_output=True, text=True, cwd=root)
             status |= res.returncode
             for line in res.stdout.strip().splitlines():
-                print(f"{label} train: {line}", flush=True)
+                print(f"{label} {name}: {line}", flush=True)
             if res.returncode:
                 print(res.stderr[-2000:], flush=True)
     return status

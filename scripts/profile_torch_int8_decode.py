@@ -19,8 +19,8 @@ card's peak memory rate (3.35 TB/s, an H100 SXM) that reading the tree
 once a step comes to and, unless ``--no-profile``, the device's busy share
 (device time of one profiled ``generate`` over the unprofiled wall: the
 profiler stretches the wall), the kernel launches a step, and the
-``q8_matmul`` wrapper's launches a call with the device time of its two
-kernels (the tiles pass and the reduction).  Then teacher-forced ``forward`` logits of
+``q8_matmul`` wrapper's launches a call with the device time of its
+kernel (one launch a product).  Then teacher-forced ``forward`` logits of
 each int8 mode against bf16 (cosine) and greedy token match; with random
 weights the logits are near uniform, so tokens diverge on noise and the
 cosine is the signal.  The last line is one JSON object.  The
@@ -110,24 +110,27 @@ def bench_decode(params, cfg, batches, max_new: int, reps: int,
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                generate(params, cfg, vis, max_new=max_new)
+                toks = generate(params, cfg, vis, max_new=max_new)
                 torch.cuda.synchronize()
                 profiled_ms = (time.perf_counter() - t0) * 1e3
             events = prof.events()
             devev = [e for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            launches = sum(1 for e in events if e.name in (
-                "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+            # cudaLaunchKernel, cudaLaunchKernelExC (a cluster launch),
+            # cuLaunchKernel, cuLaunchKernelEx
+            launches = sum(1 for e in events if e.name.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel")))
             busy_ms = device_busy_us(devev) / 1e3
             q8_us = [e.time_range.end - e.time_range.start for e in devev
-                     if "q8_matmul_tiles" in e.name or "q8_reduce" in e.name]
+                     if "q8_matmul" in e.name]
             row.update({
                 "device_busy_ms": busy_ms,
                 "device_busy_share": busy_ms / (dt / reps * 1e3),
                 "profiled_wall_ms": profiled_ms,
                 "launches_per_step": launches / max_new,
                 "q8_kernel_device_ms": sum(q8_us) / 1e3,
-                "q8_kernel_events": len(q8_us)})
+                "q8_kernel_events": len(q8_us),
+                "profiled_decode_steps": decode_steps(toks, max_new)})
             row["_table"] = prof.key_averages().table(
                 sort_by="cuda_time_total", row_limit=25)
         rows[b] = row

@@ -49,6 +49,46 @@ def test_kernel_matches_plain(dev, b, h, w, size, fast):
     assert bool(torch.isfinite(got).all()) and err <= tol, err
 
 
+@pytest.mark.parametrize("b,h,w,size", [
+    (1, 405, 720, 224), (160, 405, 720, 224), (1, 120, 160, 224),
+    (160, 120, 160, 224), (1, 224, 224, 224), (160, 224, 224, 224),
+    (5, 405, 720, 101), (3, 120, 160, 224), (7, 64, 96, 49)])
+@pytest.mark.parametrize("fast", [True, False])
+def test_every_band_layout(dev, b, h, w, size, fast):
+    """1, 3-7 and 160 frames (bands of 1 to 8 rows), bands that do not
+    divide S, output rows that are no whole number of 16-byte groups
+    (S = 101, 49), and all three modes (the same-size float32 affine,
+    fast, exact)."""
+    rows = pre.band_plan(h, w, size, fast, b)[0]
+    if (b, size) in ((5, 101), (3, 224), (7, 49)):
+        assert size % rows, (rows, size)
+    x = _frames(b, h, w, b + h + size, dev)
+    got = pre.preprocess_frames(x, size, fast)
+    torch.cuda.synchronize()
+    ref = pre.preprocess_ref(x, size, fast)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    tol = pre.TOL_FAST if ref.dtype == torch.bfloat16 else pre.TOL_F32
+    err = float((got.float() - ref.float()).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= tol, err
+    assert torch.equal(got, pre.preprocess_frames(x, size, fast))
+
+
+def test_unaligned_frames_take_the_copy_by_threads(dev):
+    """Frames that start 4 bytes off a 16-byte boundary: the band is copied
+    by the threads, not in bulk, with the same results."""
+    x = _frames(2, 405, 720, 5, dev)
+    y = torch.empty(x.numel() + 4, dtype=torch.uint8,
+                    device=dev)[4:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    for fast in (True, False):
+        ref = pre.preprocess_ref(y, 224, fast)
+        got = pre.preprocess_frames(y, 224, fast)
+        tol = pre.TOL_FAST if fast else pre.TOL_F32
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+        assert torch.equal(got, pre.preprocess_frames(x, 224, fast))
+
+
 def test_same_size_is_exact(dev):
     """224^2 input is the 1-tap identity: the affine alone, bit for bit."""
     x = _frames(4, 224, 224, 0, dev)

@@ -5,8 +5,9 @@ without one.  Run them there with
 
 Tolerance (``ops/q8_matmul.py``): max |err| <= ``TOL_REL`` (1e-4) times
 max |plain|.  Both sum exact products in float32 and differ in the order of
-the K additions only.  Two runs of the kernel must give the same bits: its
-split-K partial sums are added in a fixed order.
+the K additions only.  Two runs of the kernel must give the same bits: the
+partial sums of a cluster's ranks are added in rank order.  The bfloat16
+output must be the float32 output's ``.to(bfloat16)``, bit for bit.
 """
 import numpy as np
 import pytest
@@ -41,9 +42,9 @@ def _inputs(m, k, n, seed, dev, x_scale=1.0, zero_column=False):
     return x, wq.q, wq.s
 
 
-def _assert_close(x, q, s, splits=None):
-    got = q8._cuda_q8_matmul(x, q, s, splits)
-    again = q8._cuda_q8_matmul(x, q, s, splits)
+def _assert_close(x, q, s, cluster=None):
+    got = q8._cuda_q8_matmul(x, q, s, cluster=cluster)
+    again = q8._cuda_q8_matmul(x, q, s, cluster=cluster)
     torch.cuda.synchronize()
     ref = q8.q8_matmul_ref(x, q, s)
     assert got.dtype == torch.float32 and got.shape == ref.shape
@@ -55,7 +56,7 @@ def _assert_close(x, q, s, splits=None):
 
 
 @pytest.mark.parametrize("k,n", SHAPES)
-@pytest.mark.parametrize("m", [1, 4, 5, 8, 32, 36, 40, 64])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 32, 33, 36, 40, 63, 64])
 def test_kernel_matches_plain(dev, m, k, n):
     _assert_close(*_inputs(m, k, n, m + k + n, dev))
 
@@ -65,10 +66,46 @@ def test_every_row_tile_count(dev, m):
     _assert_close(*_inputs(m, 512, 256, m, dev))
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 7, 32])
-def test_any_split_of_k(dev, splits):
-    """Uneven splits (7 of 32 tiles) and one tile a split."""
-    _assert_close(*_inputs(8, 2048, 256, splits, dev), splits=splits)
+@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_any_split_of_k(dev, k, n, cluster):
+    """Every cluster size a shape allows (uneven splits, one 64-row tile a
+    rank) against the plain version."""
+    if cluster > k // q8.TILE_K:
+        with pytest.raises(ValueError):
+            q8.plan(8, k, n, cluster=cluster)
+        return
+    _assert_close(*_inputs(8, k, n, cluster + k, dev), cluster=cluster)
+
+
+@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 33, 64])
+def test_bf16_output_is_the_float32_output_rounded(dev, m, k, n):
+    x, q, s = _inputs(m, k, n, m + n, dev)
+    f32 = q8.q8_matmul(x, q, s)
+    got = q8.q8_matmul(x, q, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == f32.shape
+    assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("x_off,q_off", [(8, 0), (0, 16), (24, 48)])
+def test_inputs_at_other_aligned_offsets(dev, x_off, q_off):
+    """x and q as views 16 bytes or more into larger buffers (x_off bf16
+    elements, q_off int8 bytes): the tensor maps take any 16-byte aligned
+    start."""
+    m, k, n = 5, 2048, 2048
+    x, q, s = _inputs(m, k, n, 11, dev)
+    xb = torch.zeros(m * k + x_off, device=dev, dtype=torch.bfloat16)
+    qb = torch.zeros(k * n + q_off, device=dev, dtype=torch.int8)
+    xv = xb[x_off:].view(m, k)
+    qv = qb[q_off:].view(k, n)
+    xv.copy_(x)
+    qv.copy_(q)
+    assert xv.data_ptr() % 16 == 0 and qv.data_ptr() % 16 == 0
+    assert xv.data_ptr() != x.data_ptr()
+    got = _assert_close(xv, qv, s)
+    assert torch.equal(got, q8.q8_matmul(x, q, s))
 
 
 def test_zero_column_and_large_activations(dev):
@@ -91,12 +128,12 @@ def test_counts_and_refusals(dev):
     x, q, s = _inputs(8, 512, 512, 1, dev)
     q8.reset_counts()
     q8.q8_matmul(x, q, s)
-    q8._cuda_q8_matmul(x, q, s, splits=4)
+    q8._cuda_q8_matmul(x, q, s, cluster=4)
     assert q8.LAUNCHES["q8_matmul"] == 2 and q8.REF_CALLS == 0
     with pytest.raises(ValueError):
         q8.q8_matmul(torch.cat([x] * 9), q, s)            # 72 rows
     with pytest.raises(ValueError):
-        q8._cuda_q8_matmul(x, q, s, splits=9)                 # 8 tiles only
+        q8._cuda_q8_matmul(x, q, s, cluster=9)               # 8 tiles only
     with pytest.raises(ValueError):
         q8.q8_matmul(x, q.t(), s)                         # not contiguous
     with pytest.raises(ValueError):
@@ -122,6 +159,9 @@ def test_wdot_a16p_dispatch(dev, lead, k, n, kernel):
     q8.reset_counts()
     got = quant8.wdot(x, w, torch.bfloat16, "a16p")
     assert q8.LAUNCHES["q8_matmul"] == int(kernel) and q8.REF_CALLS == 0
+    if kernel:        # one launch, its bf16 output the float32's rounding
+        f32 = q8.q8_matmul(x.reshape(-1, k), w.q, w.s)
+        assert torch.equal(got.reshape(-1, n), f32.to(torch.bfloat16))
     ref = quant8.wdot(x, w, torch.bfloat16, "a16")
     assert got.dtype == torch.bfloat16 and got.shape == (*lead, n)
     err = (got.float() - ref.float()).abs()

@@ -139,6 +139,97 @@ def test_kernel_tables_reproduce_the_plain_version(src, size, fast):
     np.testing.assert_allclose(out, ref, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("src,size", RESIZES)
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("frames", [1, 5, 160])
+def test_bands_cover_every_row_once(src, size, fast, frames):
+    """``band_plan``: the bands of R output rows tile rows 0..S-1 once;
+    each band's staged source rows hold every tap of its rows and lie
+    inside the frame; R is the most rows that keep the grid at the card's
+    SMs, at most ``MAX_BAND``, less only where a block would pass the
+    shared memory aimed at or a band ``MAX_BAND_SOURCE_ROWS``."""
+    rows, first, count, smem = tpre.band_plan(*src, size, fast, frames)
+    starts, _, th, tw, _, _ = tpre._host_tables(*src, size, fast)
+    hs = starts[:size]
+    nb = -(-size // rows)
+    assert 1 <= rows <= tpre.MAX_BAND and len(first) == len(count) == nb
+    covered = np.concatenate([np.arange(size)[b * rows:(b + 1) * rows]
+                              for b in range(nb)])
+    np.testing.assert_array_equal(covered, np.arange(size))
+    for b in range(nb):
+        lo, n = int(first[b]), int(count[b])
+        assert 0 <= lo and lo + n <= src[0] and n >= th
+        for r in range(b * rows, min(size, (b + 1) * rows)):
+            assert lo <= hs[r] and hs[r] + th <= lo + n
+    bf16_out = fast and src != (size, size)
+    assert smem == tpre.smem_bytes(src[1], size, rows, int(count.max()), th,
+                                   tw, bf16_out)
+    assert rows == 1 or (smem <= tpre.SMEM_TARGET and
+                         count.max() <= tpre.MAX_BAND_SOURCE_ROWS)
+    want = max(1, min(tpre.MAX_BAND, size * frames // tpre.H100_SMS))
+    assert rows <= want
+    if rows < want:      # one row more would pass a limit
+        wider = tpre._bands(hs, th, rows + 1)[1]
+        assert wider.max() > tpre.MAX_BAND_SOURCE_ROWS or tpre.smem_bytes(
+            src[1], size, rows + 1, int(wider.max()), th, tw,
+            bf16_out) > tpre.SMEM_TARGET
+
+
+@pytest.mark.parametrize("src,size", RESIZES)
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("frames", [5, 160])
+def test_band_height_pass_reproduces_the_plain_version(src, size, fast,
+                                                       frames):
+    """The kernel's arithmetic, band by band from the band's staged source
+    rows only: the height pass takes each tap as fp16 terms (one in the
+    fast mode, whose taps are bf16 values; two in the exact mode, the
+    second the first's float32 remainder), each byte as the half
+    1024 + b, float32 sums of their products, then takes off 1024 x the
+    row's sum of the terms; its rows are rounded to bf16 in the fast
+    mode.  The width pass sums its taps in float32, then the fast mode
+    adds the bias to the bf16 sum and rounds again, the exact mode takes
+    (sum - a) / b.  The result is ``_port``'s output within the
+    tolerances of ``test_kernel_tables_reproduce_the_plain_version``."""
+    frame = _frames(1, *src, seed=frames + size)
+    rows, first, count, _ = tpre.band_plan(*src, size, fast, frames)
+    starts, weights, th, tw, a, b = tpre._host_tables(*src, size, fast)
+    hs, ws = starts[:size], starts[size:]
+    wh = torch.from_numpy(weights[:size * th].reshape(size, th))
+    ww = torch.from_numpy(weights[size * th:].reshape(3, size, tw))
+    x = torch.from_numpy(frame[0].reshape(src[0], -1))
+    bf = fast and src != (size, size)
+    out_rows = []
+    for bi, (lo, n) in enumerate(zip(first, count)):
+        halves = (x[lo:lo + n].float() + 1024).half().float()
+        for r in range(bi * rows, min(size, (bi + 1) * rows)):
+            rest, terms = wh[r].clone(), []
+            for _ in range(1 if fast else 2):
+                terms.append(rest.half().float())
+                rest = rest - terms[-1]
+            acc = torch.zeros(halves.shape[1])
+            tap_sum = torch.zeros(())
+            for term in terms:
+                for t in range(th):
+                    acc = acc + term[t] * halves[hs[r] - lo + t]
+                    tap_sum = tap_sum + term[t]
+            y = acc - tap_sum * 1024
+            out_rows.append(y.to(torch.bfloat16).float() if bf else y)
+    y = torch.stack(out_rows).reshape(size, src[1], 3)
+    taps = y[:, torch.from_numpy(ws[:, None] + np.arange(tw)[None, :])]
+    out = torch.zeros(size, size, 3)                      # [r, o, c]
+    for t in range(tw):
+        out = out + ww[:, :, t].T * taps[:, :, t]
+    if bf:
+        out = (out.to(torch.bfloat16).float() + torch.from_numpy(a)).to(
+            torch.bfloat16).float()
+        tol = tpre.TOL_FAST
+    else:
+        out = (out - torch.from_numpy(a)) / torch.from_numpy(b)
+        tol = 1e-5
+    np.testing.assert_allclose(out.numpy(), _port(frame, size, fast)[0],
+                               rtol=0, atol=tol)
+
+
 def test_patchify_is_the_jax_packages():
     img = np.random.default_rng(3).normal(size=(2, 64, 96, 3)).astype(
         np.float32)

@@ -192,16 +192,71 @@ def test_q8_matmul_rejects_mismatched_inputs():
         q8_op.q8_matmul(x, q, s[:64])
 
 
-@pytest.mark.parametrize("m,k,n", [
-    (1, 2048, 6144), (8, 2048, 2048), (32, 2048, 8192), (64, 8192, 2048),
-    (8, 512, 1536), (32, 512, 512), (64, 512, 2048), (5, 2048, 512),
-    (64, 128, 128)])
-def test_split_k_stays_inside_the_kernels_limits(m, k, n):
-    """At the captioners' shapes: at least one K tile a split, and the
-    float32 partial sums within half the weights' bytes."""
-    s = q8_op.split_k(m, k, n)
-    assert 1 <= s <= k // 64
-    assert s == 1 or s * m * n * 4 <= k * n // 2
+# the block matrices of CaptionerConfig.large() and base(), and the least
+PLAN_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),
+               (512, 1536), (512, 512), (512, 2048), (2048, 512), (128, 128)]
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("m", [1, 5, 8, 32, 64])
+def test_plan_covers_every_tile_once(m, k, n):
+    """``plan``'s partition: every (N tile, K tile) summed by exactly one
+    block, at most ``MAX_CLUSTER`` blocks a cluster, no empty K range, the
+    kernel's row widths; the K ranges are the kernel's own
+    ``rank * T / cluster`` split; the cluster is the largest power of two
+    within the card's SMs that leaves each rank ``MIN_RANK_TILES``
+    tiles."""
+    p = q8_op.plan(m, k, n)
+    assert p.rows in (8, 16, 32, 64) and m <= p.rows and (
+        p.rows == 8 or p.rows // 2 < m)
+    assert (p.tile_n, p.tile_k) == (q8_op.TILE_N, q8_op.TILE_K)
+    assert p.column_blocks * p.tile_n == n
+    assert 1 <= p.cluster <= q8_op.MAX_CLUSTER
+    assert len(p.k_ranges) == p.cluster
+    covered = []
+    for k0, k1 in p.k_ranges:
+        assert k0 < k1 and k0 % p.tile_k == 0 and k1 % p.tile_k == 0
+        covered += range(k0 // p.tile_k, k1 // p.tile_k)
+    assert covered == list(range(k // p.tile_k))
+    tiles = k // p.tile_k
+    for r, (k0, _) in enumerate(p.k_ranges):
+        assert k0 // p.tile_k == r * tiles // p.cluster
+    blocks = p.column_blocks * p.cluster
+    assert p.cluster & (p.cluster - 1) == 0
+    assert p.cluster == 1 or tiles // p.cluster >= q8_op.MIN_RANK_TILES
+    assert blocks <= 2 * q8_op.H100_SMS or p.cluster == 1
+    if (2 * p.cluster <= q8_op.MAX_CLUSTER
+            and tiles // (2 * p.cluster) >= q8_op.MIN_RANK_TILES):
+        assert 2 * blocks > round(q8_op.H100_SMS / p.column_blocks) * \
+            p.column_blocks      # a cluster twice as large would overshoot
+    for c in range(1, min(q8_op.MAX_CLUSTER, tiles) + 1):
+        assert q8_op.plan(m, k, n, cluster=c).cluster == c
+
+
+@pytest.mark.parametrize("bad", [dict(m=0), dict(m=65), dict(k=192),
+                                 dict(n=100), dict(cluster=9),
+                                 dict(k=128, cluster=3)])
+def test_plan_refuses_what_the_kernel_cannot_take(bad):
+    args = dict(m=8, k=2048, n=2048, cluster=None)
+    args.update(bad)
+    with pytest.raises(ValueError):
+        q8_op.plan(args["m"], args["k"], args["n"], cluster=args["cluster"])
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 256, 384), (5, 512, 1536)])
+def test_bf16_output_is_the_float32_output_rounded(m, k, n):
+    """The bfloat16 output of the plain version (and of ``q8_matmul`` on
+    the CPU) is the float32 output's ``.to(bfloat16)``, bit for bit."""
+    x, q, s = (torch.from_numpy(a) for a in _kernel_inputs(m, k, n, m + 1))
+    f32 = q8_op.q8_matmul_ref(x, q, s)
+    got = q8_op.q8_matmul_ref(x, q, s, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    q8_op.reset_counts()
+    assert torch.equal(q8_op.q8_matmul(x, q, s, torch.bfloat16), got)
+    assert q8_op.REF_CALLS == 1
+    with pytest.raises(ValueError):
+        q8_op.q8_matmul(x, q, s, torch.float16)
 
 
 # ------------------------------------------------- the quantised captioner

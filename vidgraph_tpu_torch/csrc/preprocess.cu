@@ -16,161 +16,476 @@
 //     added and the sum rounded to bf16 -- the plain version's roundings;
 //   float32: out = (sum - a_c) / b_c with a = 255 mean, b = 255 std; the
 //     same-size case is the 1-tap identity table.
-// Sums are float32 fmaf over the taps in ascending order.
+// Sums are float32: the height pass on the tensor cores, the width pass as
+// fmaf over the taps in ascending order.
 //
 // What bounds it on the H100: bytes (each input byte read once, each output
-// written once).  At 5 frames of 405 x 720 -> 224 (bf16 out) that is
-// 4.37 MB + 1.51 MB, 1.8 us at 3.35 TB/s: the launch costs more.
+// written once).  160 frames of 405 x 720 -> 224 (bf16 out) read 140 MB
+// and write 48 MB: 0.056 ms at 3.35 TB/s.  At 5 frames (1.8 us) a launch
+// costs more.
 //
-// Design: one block of 128 threads per (output row, frame), so that the
-// 1,120 blocks of 5 frames fit the card in one wave.  The height pass reads
-// the filter's few source rows, four bytes a thread a load (uchar4) with
-// neighbouring threads on neighbouring words, and keeps the result, one
-// float per source column and channel, in shared memory (W * 12 bytes);
-// the width pass reads its taps from there and writes the output row with
-// neighbouring threads on neighbouring elements.  Both passes issue the
-// loads of up to 8 taps before their multiply-adds.  A source row is read
-// by the 2-3 blocks whose filters cover it, from L2 after the first.
+// Design (the first one of this kind, one output row a block on the CUDA
+// cores, issued ~700K warp instructions a frame and was bound by that, not
+// by bytes):
+//  * Bands.  A block of 384 threads owns a band of R consecutive output
+//    rows of one frame (R and the bands from ops/preprocess.py::band_plan:
+//    at most 8 rows, fewer where the grid would not fill the card, a block
+//    would hold more than 113 KB, so that two blocks share an SM, or a band
+//    would need more than 32 source rows).  The band's source rows are
+//    contiguous in the frame; each comes into shared memory by a bulk
+//    async copy (cp.async.bulk) on one mbarrier, so a source byte crosses
+//    device memory about once, not once for each of the 2-3 output rows
+//    whose filters cover it, while the block stages the tap tables.  (Rows
+//    not 16-byte aligned are copied by the threads instead.)  A persistent
+//    grid that kept the next band's rows in flight measured no faster, and
+//    slower in the exact mode, whose two buffers left room for 4-row
+//    bands only (PERF.md).
+//  * The height pass is a product on the tensor cores (mma.sync
+//    m16n8k16 in fp16, float32 sums): A the band's taps [rows][source rows]
+//    (zero off each row's window), B the source bytes.  No conversion
+//    unit and no float arithmetic makes B: the half 0x64XX is 1024 + XX,
+//    so byte permutes turn four bytes of two rows into four fp16 pairs,
+//    and 1024 x a row's tap sum is taken off its float32 result.  A 32-bit
+//    shared read feeds four n8 products (its bytes are column g of products
+//    0-3), and each source byte is converted once, not once a tap.  The
+//    fast mode's taps are bf16 values, exact in fp16; the exact mode's
+//    float32 taps are split into two fp16 terms (within 2^-22 of the tap),
+//    two products.  The rows stay in shared memory, bf16 in the fast mode
+//    (they are rounded to bf16 anyway) and float32 otherwise.
+//  * The width pass puts neighbouring threads on neighbouring outputs, so
+//    that their reads of the rows and of the taps (kept output-major) fall
+//    on distinct banks, and reads an output's taps once for all the band's
+//    rows, in registers.  The block size is a multiple of 3, so a thread
+//    keeps one channel and steps its column: no division by 3 an output.
+//    (As a product on the tensor cores, with its taps as fragments built on
+//    the host, it was slower: 86 KB of fragments re-read from L2 by every
+//    band.)  The band's output is staged in shared memory over its dead
+//    source rows and copied out 16 bytes a thread (element by element
+//    where it is not a whole number of 16-byte groups).
 //
-// Later work (not here): several output rows a block, patchify fused into
-// the store.  The entry point has a plain C interface and returns
-// cudaGetLastError().
+// Frames already of the output size take preprocess_affine, elementwise.
+//
+// The entry point has a plain C interface and returns cudaGetLastError().
+
+#include "tma.cuh"
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;            // taps whose loads are issued together
-constexpr int kMaxSmem = 48 * 1024;   // no opt-in: W * 3 floats <= 48 KB
+using namespace vg_tma;
+
+constexpr int kThreads = 384;          // a multiple of 3: a thread's channel
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The height pass of one output row into row[0, W * 3): four source bytes
-// a thread a step (uchar4 loads) when the row length allows it.
-template <bool kFast, bool kVec4>
-__device__ __forceinline__ void height_pass(const uint8_t* __restrict__ src,
-                                            const float* __restrict__ wh,
-                                            int taps, int wc, float* row) {
-  constexpr int kVec = kVec4 ? 4 : 1;
-  for (int j = threadIdx.x * kVec; j < wc; j += kThreads * kVec) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int t0 = 0; t0 < taps; t0 += kUnroll) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int t = t0 + u;
-        if (t < taps) {
-          const float w = __ldg(wh + t);
-          const uint8_t* p = src + static_cast<size_t>(t) * wc + j;
-          if constexpr (kVec4) {
-            const uchar4 v = __ldg(reinterpret_cast<const uchar4*>(p));
-            acc[0] = fmaf(w, static_cast<float>(v.x), acc[0]);
-            acc[1] = fmaf(w, static_cast<float>(v.y), acc[1]);
-            acc[2] = fmaf(w, static_cast<float>(v.z), acc[2]);
-            acc[3] = fmaf(w, static_cast<float>(v.w), acc[3]);
-          } else {
-            acc[0] = fmaf(w, static_cast<float>(__ldg(p)), acc[0]);
-          }
-        }
-      }
-    }
-    if constexpr (kFast) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[e] = round_bf16(acc[e]);
-    }
-    if constexpr (kVec4) {
-      *reinterpret_cast<float4*>(row + j) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-      row[j] = acc[0];
-    }
-  }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-template <bool kFast, bool kVec4>
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The bytes of words lo (source row k) and hi (row k + 1) as four packed
+// fp16 pairs (1024 + lo.b_j, 1024 + hi.b_j), j = 0..3: 0x64XX is the half
+// 1024 + XX, so a byte permute makes two of them.
+__device__ __forceinline__ void byte_halves(uint32_t lo, uint32_t hi,
+                                            uint32_t (&b)[4]) {
+  const uint32_t t0 = __byte_perm(lo, hi, 0x5140);  // lo.b0 hi.b0 lo.b1 hi.b1
+  const uint32_t t1 = __byte_perm(lo, hi, 0x7362);  // lo.b2 hi.b2 lo.b3 hi.b3
+  b[0] = __byte_perm(t0, 0x64646464u, 0x4140);
+  b[1] = __byte_perm(t0, 0x64646464u, 0x4342);
+  b[2] = __byte_perm(t1, 0x64646464u, 0x4140);
+  b[3] = __byte_perm(t1, 0x64646464u, 0x4342);
+}
+
+// d += a (16x16 f16, row) * b (16x8 f16, col), float32 accumulators.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+
+// Shared row stride of a source row of wc bytes (and of a height-pass row,
+// in elements): past the last 32-byte chunk, and 16 modulo 32, so that
+// the four rows a fragment reads fall on distinct banks.
+__host__ __device__ constexpr int row_stride(int wc) {
+  return ((wc + 31) & ~31) + 16;
+}
+
+// ops/preprocess.py::smem_bytes: the band's source rows (then the band's
+// output, staged for the copy out), the height-pass rows, the width taps
+// [S 3][w_taps] and starts, the height taps and starts, a barrier.
+__host__ __device__ inline int smem_bytes(int W, int S, int R, int band_rows,
+                                          int h_taps, int w_taps,
+                                          bool bf16) {
+  const int ls = row_stride(W * 3), elem = bf16 ? 2 : 4;
+  const int src = band_rows * ls;
+  const int staged = src > R * S * 3 * elem ? src : R * S * 3 * elem;
+  return round16(staged) + R * ls * elem + 3 * S * w_taps * 4 + S * 4 +
+         R * h_taps * 4 + R * 4 + 16;
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Grid (bands, B).  bands: int32 [2 nb], each band's first source row,
+// then its source row count (at most 32).  w_w output-major [S 3][w_taps].
+// kBulk: W * 3 % 16 == 0 and x 16-byte aligned.  kVec: the band's output is
+// a whole number of 16-byte groups.
+template <bool kFast, bool kBulk, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 preprocess_frames(const uint8_t* __restrict__ x, void* __restrict__ out,
                   int H, int W, int S, const int* __restrict__ h_start,
                   const int* __restrict__ w_start,
                   const float* __restrict__ h_w,
-                  const float* __restrict__ w_w, int h_taps, int w_taps,
-                  float a0, float a1, float a2, float b0, float b1,
-                  float b2) {
-  extern __shared__ __align__(16) float row[];    // [W * 3]
-  const int r = blockIdx.x, frame = blockIdx.y;
-  const int wc = W * 3;
-  const uint8_t* src =
-      x + (static_cast<size_t>(frame) * H + __ldg(h_start + r)) * wc;
-  height_pass<kFast, kVec4>(src, h_w + static_cast<size_t>(r) * h_taps,
-                            h_taps, wc, row);
+                  const float* __restrict__ w_w,
+                  const int* __restrict__ bands, int h_taps, int w_taps,
+                  int R, int band_rows, float a0, float a1, float a2,
+                  float b0, float b1, float b2) {
+  using T = typename std::conditional<kFast, __nv_bfloat16, float>::type;
+  // the height taps as 1 (fast: they are bf16 values) or 2 fp16 terms
+  constexpr int kTerms = kFast ? 1 : 2;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int wc = W * 3, ls = row_stride(wc), row_out = S * 3;
+  const int band = blockIdx.x, frame = blockIdx.y, nb = gridDim.x;
+  const int r0 = band * R, nr = min(R, S - r0);
+  const int src0 = bands[band], nrows = bands[nb + band];
+  const int ksteps = (band_rows + 15) / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+
+  uint8_t* src = smem;                   // source rows, then the output
+  T* y = reinterpret_cast<T*>(
+      smem + round16(max(band_rows * ls, R * row_out * (int)sizeof(T))));
+  float* ww = reinterpret_cast<float*>(y + R * ls);
+  int* ws = reinterpret_cast<int*>(ww + row_out * w_taps);
+  float* wh = reinterpret_cast<float*>(ws + S);
+  int* hs = reinterpret_cast<int*>(wh + R * h_taps);
+  const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t bar =
+      smem0 + ((static_cast<int>(reinterpret_cast<uint8_t*>(hs + R) - smem) +
+                7) & ~7);
+  const uint8_t* rows = x + (static_cast<size_t>(frame) * H + src0) * wc;
+
+  if constexpr (kBulk) {
+    // one bulk copy a source row, all on one barrier
+    if (tid == 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect(bar, nrows * wc);
+      for (int i = 0; i < nrows; ++i)
+        bulk_load(smem0 + i * ls, rows + static_cast<size_t>(i) * wc, wc,
+                  bar);
+    }
+  } else {
+    for (int i = tid; i < nrows * wc; i += kThreads) {
+      const int row = i / wc;
+      src[row * ls + (i - row * wc)] = rows[i];
+    }
+  }
+  // the tables, while the band's rows fly
+  for (int i = tid; i < row_out * w_taps; i += kThreads) ww[i] = __ldg(w_w + i);
+  for (int i = tid; i < S; i += kThreads) ws[i] = __ldg(w_start + i);
+  for (int i = tid; i < nr * h_taps; i += kThreads)
+    wh[i] = __ldg(h_w + static_cast<size_t>(r0) * h_taps + i);
+  for (int i = tid; i < nr; i += kThreads)
+    hs[i] = __ldg(h_start + r0 + i) - src0;
   __syncthreads();
 
-  const size_t obase = (static_cast<size_t>(frame) * S + r) * S * 3;
-  for (int o = threadIdx.x; o < S * 3; o += kThreads) {
-    const int col = o / 3, c = o - col * 3;
-    const float* ww = w_w + (static_cast<size_t>(c) * S + col) * w_taps;
-    const float* y = row + __ldg(w_start + col) * 3 + c;
-    float acc = 0.f;
-    for (int t0 = 0; t0 < w_taps; t0 += kUnroll) {
+  // height pass on the tensor cores: y[band rows, columns] = A [rows,
+  // source rows] . B [source rows, columns], A the band's taps in fp16
+  // (zero off a row's window; rows past nr zero), B the source bytes as
+  // the halves 1024 + b; 1024 x the sum of a row's taps is taken off the
+  // product after it.  a[ks][term]: rows g, g + 8 x source rows
+  // 16 ks + 2 tq (+1, +8, +9)
+  uint32_t a[2][kTerms][4];
+  float rowsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int t = t0 + u;
-        if (t < w_taps) acc = fmaf(__ldg(ww + t), y[t * 3], acc);
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e & 1);
+      const int k = 16 * ks + 2 * tq + 8 * (e >> 1);
+      float w2[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = k + u - (r < nr ? hs[r] : 0);
+        w2[u] = (r < nr && t >= 0 && t < h_taps) ? wh[r * h_taps + t] : 0.f;
+      }
+#pragma unroll
+      for (int term = 0; term < kTerms; ++term) {
+        a[ks][term][e] = pack_half(w2[0], w2[1]);
+        const float2 used = __half22float2(
+            *reinterpret_cast<const __half2*>(&a[ks][term][e]));
+        rowsum[e & 1] += used.x + used.y;
+        w2[0] -= used.x;
+        w2[1] -= used.y;
       }
     }
-    const float a = c == 0 ? a0 : (c == 1 ? a1 : a2);
-    if (kFast) {
-      static_cast<__nv_bfloat16*>(out)[obase + o] =
-          __float2bfloat16_rn(round_bf16(acc) + a);
-    } else {
-      const float b = c == 0 ? b0 : (c == 1 ? b1 : b2);
-      static_cast<float*>(out)[obase + o] = (acc - a) / b;
+  // the quad's four threads hold a row's 2 x 16 source rows between them
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rowsum[h] += __shfl_xor_sync(0xffffffffu, rowsum[h], 1);
+    rowsum[h] += __shfl_xor_sync(0xffffffffu, rowsum[h], 2);
+    rowsum[h] *= 1024.f;
+  }
+  if constexpr (kBulk) mbar_wait(bar, 0);
+
+  // a warp a 32-byte chunk of columns: the thread's word g, whose bytes
+  // j are column g of the n8 products j; it ends with the columns 8 tq ..
+  // 8 tq + 7 of the chunk for rows g and g + 8
+  const int chunks = (wc + 31) / 32;
+  for (int ch = warp; ch < chunks; ch += kWarps) {
+    const uint8_t* col_base = src + ch * 32 + g * 4;
+    float d[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (ks >= ksteps) break;
+      // rows past the band's own are read from row 0: their taps are 0
+      const int k = 16 * ks + 2 * tq;
+      auto word = [&](int row) {
+        return *reinterpret_cast<const uint32_t*>(
+            col_base + (row < nrows ? row : 0) * ls);
+      };
+      uint32_t bl[4], bh[4];
+      byte_halves(word(k), word(k + 1), bl);
+      byte_halves(word(k + 8), word(k + 9), bh);
+#pragma unroll
+      for (int term = 0; term < kTerms; ++term)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_f16(d[j], a[ks][term], bl[j], bh[j]);
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (r >= nr) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = d[j][2 * h] - rowsum[h];
+        v[4 + j] = d[j][2 * h + 1] - rowsum[h];
+      }
+      T* yo = y + r * ls + ch * 32 + 8 * tq;
+      if constexpr (kFast) {
+        *reinterpret_cast<uint4*>(yo) =
+            make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                       pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+      } else {
+        reinterpret_cast<float4*>(yo)[0] =
+            make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(yo)[1] =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // width pass: neighbouring threads on neighbouring outputs, each
+  // output's taps read once for the band's rows (held in registers up to
+  // 8); kThreads is a multiple of 3, so a thread keeps its channel
+  // c = tid % 3 and steps its column: no division by 3 an output.  The
+  // output is staged over this band's source rows, dead now.
+  T* staged_out = reinterpret_cast<T*>(src);
+  {
+    const int c = tid % 3;
+    const float a_c = c == 0 ? a0 : (c == 1 ? a1 : a2);
+    const float b_c = c == 0 ? b0 : (c == 1 ? b1 : b2);
+    for (int o = tid, col = tid / 3; o < row_out;
+         o += kThreads, col += kThreads / 3) {
+      const float* wt = ww + o * w_taps;
+      const T* yp = y + ws[col] * 3 + c;
+      float wr[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) wr[t] = t < w_taps ? wt[t] : 0.f;
+      for (int r = 0; r < nr; ++r, yp += ls) {
+        float acc = 0.f;
+        if (w_taps <= 8) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            if (t < w_taps) acc = fmaf(wr[t], to_float(yp[3 * t]), acc);
+        } else {
+#pragma unroll 4
+          for (int t = 0; t < w_taps; ++t)
+            acc = fmaf(wt[t], to_float(yp[3 * t]), acc);
+        }
+        if constexpr (kFast)
+          staged_out[r * row_out + o] =
+              __float2bfloat16_rn(round_bf16(acc) + a_c);
+        else
+          staged_out[r * row_out + o] = (acc - a_c) / b_c;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the band's output rows are contiguous: copy them out, 16 bytes a
+  // thread where the rows allow it
+  T* dst = static_cast<T*>(out) +
+           (static_cast<size_t>(frame) * S + r0) * row_out;
+  if constexpr (kVec) {
+    const int n16 = nr * row_out * (int)sizeof(T) / 16;
+    for (int i = tid; i < n16; i += kThreads)
+      reinterpret_cast<uint4*>(dst)[i] =
+          reinterpret_cast<const uint4*>(staged_out)[i];
+  } else {
+    for (int i = tid; i < nr * row_out; i += kThreads)
+      dst[i] = staged_out[i];
   }
 }
 
-template <bool kFast, bool kVec4>
-void launch(const dim3 grid, size_t smem, cudaStream_t s, const void* x,
-            void* out, int H, int W, int S, const int* st, const float* wt,
-            const float* w_w, int h_taps, int w_taps, float a0, float a1,
-            float a2, float b0, float b1, float b2) {
-  preprocess_frames<kFast, kVec4><<<grid, kThreads, smem, s>>>(
-      static_cast<const uint8_t*>(x), out, H, W, S, st, st + S, wt, w_w,
-      h_taps, w_taps, a0, a1, a2, b0, b1, b2);
+// The byte b (0..255) as a float, exactly, without the conversion unit:
+// the float 2^23 + b less 2^23.
+__device__ __forceinline__ float byte_float(uint32_t b) {
+  return __uint_as_float(0x4B000000u | b) - 8388608.0f;
+}
+
+// Frames already of the output size: out = (x - a_c) / b_c, float32, four
+// pixels (12 bytes in, 48 out) a thread a step, so that each byte's
+// channel is its place in the step; bytes past the last whole step one by
+// one.
+__global__ void __launch_bounds__(256)
+preprocess_affine(const uint8_t* __restrict__ x, float* __restrict__ out,
+                  long long n, float a0, float a1, float a2, float b0,
+                  float b1, float b2) {
+  const float a[3] = {a0, a1, a2}, b[3] = {b0, b1, b2};
+  const long long steps = n / 12;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < steps;
+       i += gridDim.x * 256ll) {
+    const uint32_t* in = reinterpret_cast<const uint32_t*>(x + 12 * i);
+    const uint32_t w[3] = {__ldg(in), __ldg(in + 1), __ldg(in + 2)};
+    float v[12];
+#pragma unroll
+    for (int e = 0; e < 12; ++e)
+      v[e] = (byte_float(__byte_perm(w[e / 4], 0, 0x4440 + e % 4)) -
+              a[e % 3]) /
+             b[e % 3];
+    float4* o = reinterpret_cast<float4*>(out + 12 * i);
+    o[0] = make_float4(v[0], v[1], v[2], v[3]);
+    o[1] = make_float4(v[4], v[5], v[6], v[7]);
+    o[2] = make_float4(v[8], v[9], v[10], v[11]);
+  }
+  for (long long e = steps * 12 + blockIdx.x * 256ll + threadIdx.x; e < n;
+       e += gridDim.x * 256ll)
+    out[e] = (byte_float(x[e]) - a[e % 3]) / b[e % 3];
+}
+
+template <bool kFast, bool kBulk, bool kVec>
+cudaError_t launch(const dim3 grid, int smem, cudaStream_t st,
+                   const uint8_t* x, void* out, int H, int W, int S,
+                   const int* starts, const float* wt, const float* w_w,
+                   const int* bands, int h_taps, int w_taps, int R,
+                   int band_rows, float a0, float a1, float a2, float b0,
+                   float b1, float b2) {
+  auto* kern = preprocess_frames<kFast, kBulk, kVec>;
+  static std::atomic<int> raised[64];             // bytes allowed a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024 && (dev >= 64 || raised[dev].load() < smem)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) {
+      int seen = raised[dev].load();
+      while (seen < smem && !raised[dev].compare_exchange_weak(seen, smem)) {
+      }
+    }
+  }
+  kern<<<grid, kThreads, smem, st>>>(x, out, H, W, S, starts, starts + S, wt,
+                                     w_w, bands, h_taps, w_taps, R,
+                                     band_rows, a0, a1, a2, b0, b1, b2);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int preprocess_max_smem() { return kMaxSmem; }
-
 // x: [B, H, W, 3] uint8; out: [B, S, S, 3] bf16 (fast) or float32.
 // starts: int32 [2 S] (height windows, then width windows); weights:
-// float32 [S h_taps] then [3, S, w_taps].
+// float32 [S h_taps] then [S, 3, w_taps]; bands: int32 [2 nb] (first
+// source row of each band of R output rows, then its source row count,
+// the largest band_rows); smem: ops/preprocess.py::smem_bytes.
 int preprocess_frames_launch(const void* x, void* out, int B, int H, int W,
                              int S, const void* starts, const void* weights,
-                             int h_taps, int w_taps, int fast, float a0,
-                             float a1, float a2, float b0, float b1,
-                             float b2, void* stream) {
-  const dim3 grid(S, B);
-  const size_t smem = static_cast<size_t>(W) * 3 * sizeof(float);
+                             const void* bands, int h_taps, int w_taps,
+                             int R, int nb, int band_rows, int smem,
+                             int fast, float a0, float a1, float a2,
+                             float b0, float b1, float b2, void* stream) {
+  if (B < 1 || B > 65535 || R < 1 || R > 16 || band_rows > 32 ||
+      nb != (S + R - 1) / R ||
+      smem != smem_bytes(W, S, R, band_rows, h_taps, w_taps, fast != 0) ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xb = static_cast<const uint8_t*>(x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H == S && W == S && !fast && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    const long long n = 3ll * B * S * S;
+    const long long blocks = (n / 12 + 255) / 256;
+    preprocess_affine<<<static_cast<int>(blocks < 1 ? 1 : blocks), 256, 0,
+                        s>>>(xb, static_cast<float*>(out), n, a0, a1, a2,
+                             b0, b1, b2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(nb, B);
   const int* st = static_cast<const int*>(starts);
   const float* wt = static_cast<const float*>(weights);
   const float* w_w = wt + static_cast<size_t>(S) * h_taps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // uchar4 loads need every source row to start on 4 bytes
-  const bool vec4 = (W * 3) % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  auto go = fast ? (vec4 ? launch<true, true> : launch<true, false>)
-                 : (vec4 ? launch<false, true> : launch<false, false>);
-  go(grid, smem, s, x, out, H, W, S, st, wt, w_w, h_taps, w_taps, a0, a1,
-     a2, b0, b1, b2);
-  return static_cast<int>(cudaGetLastError());
+  const int* bd = static_cast<const int*>(bands);
+  const bool bulk =
+      (W * 3) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec = (S * 3 * (fast ? 2 : 4)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  using Fn = cudaError_t (*)(const dim3, int, cudaStream_t, const uint8_t*,
+                             void*, int, int, int, const int*, const float*,
+                             const float*, const int*, int, int, int, int,
+                             float, float, float, float, float, float);
+  static const Fn table[8] = {
+      launch<false, false, false>, launch<false, false, true>,
+      launch<false, true, false>,  launch<false, true, true>,
+      launch<true, false, false>,  launch<true, false, true>,
+      launch<true, true, false>,   launch<true, true, true>};
+  const Fn go = table[(fast ? 4 : 0) + (bulk ? 2 : 0) + (vec ? 1 : 0)];
+  return static_cast<int>(go(grid, smem, s, xb, out, H, W, S, st, wt, w_w,
+                             bd, h_taps, w_taps, R, band_rows, a0, a1, a2,
+                             b0, b1, b2));
 }
 
 }  // extern "C"

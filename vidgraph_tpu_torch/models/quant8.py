@@ -20,7 +20,8 @@ roundings:
   (:func:`a8_dot`, shared with ``models/vit_quant.py``).
 * ``a16p``: the hand-written kernel of ``ops/q8_matmul.py``, for a CUDA
   tensor with at most 64 rows and K, N multiples of 128 (the float32 sum
-  times ``s``, rounded to ``dtype`` once); every other shape, and a CPU
+  times ``s``, rounded to ``dtype`` once: the kernel writes a bfloat16
+  output itself, one launch a product); every other shape, and a CPU
   tensor, takes ``a16``, as the JAX package does off the TPU.
 """
 from __future__ import annotations
@@ -130,7 +131,9 @@ def wdot(x: torch.Tensor, w: Any, dtype: torch.dtype,
         k, n = w.q.shape
         if (x.is_cuda and lead <= q8_op.MAX_M and k % 128 == 0
                 and n % 128 == 0):
-            y = q8_op.q8_matmul(x.reshape(lead, k), w.q, w.s)
+            out = dtype if dtype in (torch.float32,
+                                     torch.bfloat16) else torch.float32
+            y = q8_op.q8_matmul(x.reshape(lead, k), w.q, w.s, out)
             return y.reshape(*x.shape[:-1], n).to(dtype)
         mode = "a16"
     if mode == "a8":

@@ -72,16 +72,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_dq_convert_launch.restype = i
     lib.flash_takes_head_dim.argtypes = [i]
     lib.flash_takes_head_dim.restype = i
-    lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, i, i,
-                                             i, f, f, f, f, f, f, p]
+    lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, p, i,
+                                             i, i, i, i, i, i, f, f, f, f,
+                                             f, f, p]
     lib.preprocess_frames_launch.restype = i
-    lib.preprocess_max_smem.restype = i
     lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i64, i64,
                                            i64, p]
     lib.short_attention_launch.restype = i
     lib.short_attention_max_tokens.restype = i
     lib.short_attention_head_dim.restype = i
-    lib.q8_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.q8_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.q8_matmul_launch.restype = i
 
 

@@ -19,12 +19,13 @@ separable antialiased triangle-filter resize -> the CLIP affine -> [B, S, S,
 * ``fast=False``: float32 separable resize, then the float32 affine.
 
 The kernel makes the same roundings as the plain version, so the two differ
-only by float32 summation order.  Each block computes one output row of one
-frame: the height pass over the few source rows that the filter covers goes
-into shared memory (one float per source column and channel), and the width
-pass reads it from there.  Per-output start offsets and tap weights are
-host tables built once per (source size, output size, mode) and kept on
-the device.
+only by float32 summation order.  A block computes a band of output rows of
+one frame (``band_plan``): the band's source rows come into shared memory
+once, by bulk copies; the height pass is a product on the tensor cores over
+them, and the width pass reads its rows from shared memory.  Per-output
+start offsets and tap weights are host tables built once per (source size,
+output size, mode, frames) and kept on the device.  Same-size frames take
+an elementwise kernel.
 
 What bounds it on the H100: bytes.  At the serving shape (5 frames of
 405 x 720 -> 224, bf16 out) it reads 4.37 MB and writes 1.51 MB: 1.8 us at
@@ -32,8 +33,8 @@ What bounds it on the H100: bytes.  At the serving shape (5 frames of
 raw frames from the host (875 KB a frame) costs more than the kernel.
 
 Dispatch: ``preprocess_frames`` takes the plain version for a tensor on the
-CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, ``REF_CALLS`` the plain
-version's calls.  ``patchify`` is the JAX package's, in its NHWC
+CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts
+kernel launches, ``REF_CALLS`` the plain version's calls.  ``patchify`` is the JAX package's, in its NHWC
 ``(p, p, c)`` flatten order.
 """
 from __future__ import annotations
@@ -212,34 +213,122 @@ def _host_tables(h: int, w: int, size: int, fast: bool):
     return starts, weights, hw.shape[1], ww.shape[2], a, b
 
 
-@functools.lru_cache(maxsize=32)
-def _tables(h: int, w: int, size: int, fast: bool, device: torch.device):
-    """``_host_tables`` with the starts and weights on ``device``, kept."""
+# the kernel's launch shape (csrc/preprocess.cu): output rows a band at
+# most, source rows a band at most (two product steps), the shared memory
+# a block aims under (two blocks an SM of an H100: faster than three with
+# smaller bands, PERF.md) and the longest source
+# row it takes (a float32 row of it within 48 KB)
+MAX_BAND = 8
+MAX_BAND_SOURCE_ROWS = 32
+SMEM_TARGET = 113 * 1024
+SMEM_MAX = 227 * 1024
+MAX_ROW_BYTES = 48 * 1024
+H100_SMS = 132
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def row_stride(wc: int) -> int:
+    """The kernel's shared row stride for a source row of ``wc`` bytes:
+    past its last 32-byte chunk, and 16 modulo 32 (distinct banks for the
+    four rows a product fragment reads)."""
+    return -(-wc // 32) * 32 + 16
+
+
+def _bands(hs: np.ndarray, th: int, rows: int) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """Bands of ``rows`` consecutive output rows: (first source row [nb],
+    source rows [nb]) int32, the source rows that hold every tap of the
+    band's rows (``hs[r] .. hs[r] + th - 1``)."""
+    size = len(hs)
+    first, count = [], []
+    for r0 in range(0, size, rows):
+        band = hs[r0:r0 + rows]
+        lo, hi = int(band.min()), int(band.max()) + th
+        first.append(lo)
+        count.append(hi - lo)
+    return np.asarray(first, np.int32), np.asarray(count, np.int32)
+
+
+def smem_bytes(w: int, size: int, rows: int, band_rows: int, th: int,
+               tw: int, bf16_out: bool) -> int:
+    """Shared memory of one block (``csrc/preprocess.cu``'s layout): the
+    band's source rows (then its output, staged for the copy out), the
+    height-pass rows (bf16 where the output is), the width taps and
+    starts, the height taps and starts, a barrier."""
+    ls, elem = row_stride(w * 3), 2 if bf16_out else 4
+    staged = max(band_rows * ls, rows * size * 3 * elem)
+    return (_round16(staged) + rows * ls * elem + 3 * size * tw * 4
+            + size * 4 + rows * th * 4 + rows * 4 + 16)
+
+
+def band_plan(h: int, w: int, size: int, fast: bool, frames: int,
+              sms: int = H100_SMS):
+    """(rows a band, first source row [nb], source rows [nb], shared bytes)
+    for ``frames`` frames: as many output rows a band as keep the grid
+    (bands x frames) at least ``sms`` blocks, at most ``MAX_BAND``, and
+    fewer where a block would pass ``SMEM_TARGET`` or a band
+    ``MAX_BAND_SOURCE_ROWS`` source rows (two product steps of 16)."""
+    starts, _, th, tw, _, _ = _host_tables(h, w, size, fast)
+    hs = starts[:size]
+    bf16_out = fast and (h, w) != (size, size)
+    rows = max(1, min(MAX_BAND, size * frames // sms))
+    while True:
+        first, count = _bands(hs, th, rows)
+        smem = smem_bytes(w, size, rows, int(count.max()), th, tw, bf16_out)
+        if rows == 1 or (smem <= SMEM_TARGET
+                         and count.max() <= MAX_BAND_SOURCE_ROWS):
+            return rows, first, count, smem
+        rows -= 1
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(h: int, w: int, size: int, fast: bool, frames: int,
+            device: torch.device):
+    """``_host_tables`` and ``band_plan`` on ``device``, kept: (starts,
+    weights (the width taps output-major), bands [first..., rows...], th,
+    tw, a, b, rows, nb, max band rows, shared bytes)."""
     starts, weights, th, tw, a, b = _host_tables(h, w, size, fast)
+    rows, first, count, smem = band_plan(h, w, size, fast, frames)
+    bands = np.concatenate([first, count]).astype(np.int32)
+    # the width taps output-major, [size 3][tw], as the kernel reads them
+    ww = weights[size * th:].reshape(3, size, tw).transpose(1, 0, 2)
+    weights = np.concatenate([weights[:size * th], ww.ravel()])
     return (torch.from_numpy(starts).to(device),
-            torch.from_numpy(weights).to(device), th, tw, a, b)
+            torch.from_numpy(weights).to(device),
+            torch.from_numpy(bands).to(device), th, tw, a, b, rows,
+            len(first), int(count.max()), smem)
 
 
 def _cuda_preprocess(x: torch.Tensor, size: int,
                      fast: bool) -> torch.Tensor:
     b, h, w, c = x.shape
-    lib = _build.library()
     if not x.is_contiguous():
         raise ValueError("frames must be contiguous")
-    if w * c * 4 > lib.preprocess_max_smem():
-        raise ValueError(f"width {w}: the kernel stages a row of at most "
-                         f"{lib.preprocess_max_smem() // 12} pixels")
+    if w * c * 4 > MAX_ROW_BYTES:
+        raise ValueError(f"width {w}: the kernel takes rows of at most "
+                         f"{MAX_ROW_BYTES // 12} pixels")
     if b == 0 or b > 65535:
         raise ValueError(f"B = {b}: the kernel takes 1..65535 frames")
     bf16_out = fast and (h, w) != (size, size)
-    starts, weights, th, tw, a, bb = _tables(h, w, size, fast, x.device)
+    (starts, weights, bands, th, tw, a, bb, rows, nb, most,
+     smem) = _tables(h, w, size, fast, b, x.device)
+    if smem > SMEM_MAX or most > MAX_BAND_SOURCE_ROWS:
+        raise ValueError(f"{h} x {w} -> {size}: a band of one row needs "
+                         f"{most} source rows and {smem} bytes of shared "
+                         f"memory; the kernel takes {MAX_BAND_SOURCE_ROWS} "
+                         f"and {SMEM_MAX}")
+    lib = _build.library()
     out = torch.empty((b, size, size, c), device=x.device,
                       dtype=torch.bfloat16 if bf16_out else torch.float32)
     f = ctypes.c_float
     with torch.cuda.device(x.device):
         _build.check(lib.preprocess_frames_launch(
             x.data_ptr(), out.data_ptr(), b, h, w, size,
-            starts.data_ptr(), weights.data_ptr(), th, tw, int(bf16_out),
+            starts.data_ptr(), weights.data_ptr(), bands.data_ptr(), th, tw,
+            rows, nb, most, smem, int(bf16_out),
             f(a[0]), f(a[1]), f(a[2]), f(bb[0]), f(bb[1]), f(bb[2]),
             torch.cuda.current_stream().cuda_stream), "preprocess_frames")
         LAUNCHES["preprocess"] += 1

@@ -179,10 +179,58 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    Barabási–Albert graphs of 64, 96, 128, 256 and 512 nodes: where
    ``auto`` would switch on this card.
 
-``--phases 14,15,16`` runs only the named phases (with the build): a
-partial run prints no kernels record and no ``ok`` line.
+17. the live multi-stream runtime at full width (``backend.vlm: tpu``:
+   ViT-B/32 + ``CaptionerConfig.base()`` from seed 0, 256 new bytes; the
+   hash embed client), driven by ``scripts/measure_torch_stream_scaling.py``'s
+   ``run`` on numpy frame sources of 240 x 320 at 30 fps, 1 s chunks of 5
+   frames, a query to every stream each 0.5 video-seconds.  First the
+   kernels at the stream's shapes against their plain versions:
+   preprocessing of 5, 40 and 80 frames of 240 x 320 (fast and exact),
+   the flash prefill at B 1, 8 and 16 (nv 8 + BOS), the top-k on a 1024-row
+   memory holding 0, 1, k - 1 and 300 rows (and an empty memory's search
+   launches nothing), with times and bounds.  Then, between a reset and a
+   read of the launch counts, ``STREAM_SECONDS`` of video on 1 stream and
+   on 8 as fast as the card allows (the 8 with a ``LiveKGIngestor`` on the
+   local chat client) and on 8 paced by the wall clock: every stream
+   completes chunks, every query's hits are its own stream's chunks (and
+   a query with one of a stream's captions finds that chunk), each
+   unpaced 8-stream batch captions 8 chunks (a paced one up to 16: two
+   windows a stream, the lag limit), every live graph holds nodes after
+   ``flush``, the preprocessing kernel launches at least once and the
+   flash kernel once a layer per batch, the top-k kernels serve the
+   queries, and no plain version serves.  After the read: one batch of 8
+   chunks' tokens against each chunk's own B = 1 tokens, equal or (first
+   differing step printed) a near-tie under ``CAPTION_TIE_TOL`` of the
+   B = 1 context's logits; and one ``process_ready`` of 8 chunks profiled
+   (launches, device busy share).  Prints realtime and throughput factor,
+   coverage, shed chunks, dropped frames, chunk latency p50, query p50
+   and p95 under load (from the query's arrival to its answer, the
+   caption batch it waits behind included) and the engine's own query
+   service time (``query_p50_ms``, ``query_p95_ms``);
+18. the HTTP server (``services/server.py::VideoMemoryServer``) in-process
+   on an ephemeral port on the card: 240 ``/v1/ingest`` over 4 streams, 24
+   ``/v1/query``, 4 ``/v1/retrieve`` on ``bench.py::_build_graph``'s graph
+   exported and imported under uuid ``bench``, ``/v1/stats``; then the
+   same session on the CPU: every response's keys equal, query hits equal
+   (ties in any order, scores within ``TOL``), retrieved texts equal.
+   Prints the request p50 by route;
+19. the trained encoders at their default widths with the port's seeded
+   weights, on the card against the same module on the CPU: the
+   transformer text embedder (bf16 at B 8/64/256 within ``ENC_BF16_TOL``,
+   float32 at B 8 within ``ENC_F32_TOL``), the cross-encoder reranker
+   (``RerankerConfig()``, 8/16/32 pairs), ms a call and the device's busy
+   share; bench's retrieval with ``backend.embedder: transformer`` and
+   ``backend.reranker: trained`` (its p50 and p95 over bench's 30 queries
+   after its 5 warm-ups, and how many of the first ``ENC_CPU_QUERIES``
+   texts equal a CPU run's); the
+   answer selector in ``blend`` and ``pure`` modes on four of those
+   contexts: answers equal to the CPU's.
 
-The last three lines: the kernels' JSON record, the card's name and power
+``--phases 14,15,16,17,18,19`` runs only the named phases of 14-19 (with
+the build): a partial run prints no kernels record and no ``ok`` line.
+
+The last three lines: the kernels' JSON record (``seconds`` last: the
+run's time from before the build), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.  Each
 kernel's entry carries its launches on the main path, its max |error|
 against its plain version, the times of the kernel, the plain version and
@@ -493,9 +541,12 @@ def phase_golden(device: str = "cuda") -> None:
         "tests/golden/pipeline_golden.json")
 
 
-def bench_retriever(device: str):
+def bench_retriever(device: str, embedder_kind: str = "tpu",
+                    reranker_kind: str = "tpu"):
     """bench.py's reference-scale graph on ``device``, behind a hybrid
-    retriever set as ``bench.py:93-95`` sets it, and its 30 queries."""
+    retriever set as ``bench.py:93-95`` sets it, and its 30 queries; the
+    chunks embedded and the queries served by the ``backend.embedder`` and
+    ``backend.reranker`` kinds given."""
     import bench
     from vidgraph_tpu_torch.core.config import PipelineConfig
     from vidgraph_tpu_torch.graph.embedded import EmbeddedGraphStore
@@ -509,8 +560,9 @@ def bench_retriever(device: str):
     cfg.retrieval.entity_first = False
     cfg.retrieval.post_compression = True
     cfg.retrieval.rerank_after_traversal = True
-    embedder = make_embed_client("tpu", dim=cfg.embedding_memory.dim)
-    reranker = make_rerank_client("tpu", embed_client=embedder)
+    embedder = make_embed_client(embedder_kind,
+                                 dim=cfg.embedding_memory.dim)
+    reranker = make_rerank_client(reranker_kind, embed_client=embedder)
     store = EmbeddedGraphStore("bench", persist_dir=None, persist=False)
     bench._build_graph(store, embedder, rng)
     assert store._chunk_emb.device.type == device
@@ -522,17 +574,23 @@ def bench_retriever(device: str):
     return retriever, store, queries
 
 
-def bench_retrieval(device: str) -> dict:
-    """The 30 queries after 5 warm-up queries, timed one by one."""
+def bench_retrieval(device: str, embedder: str = "tpu",
+                    reranker: str = "tpu", queries: int = 0,
+                    warmup: int = -1) -> dict:
+    """bench.py's 30 queries after its 5 warm-up queries, timed one by
+    one; the CPU comparisons of the trained encoders take the first
+    ``queries`` after ``warmup`` warm-ups instead."""
     import bench
 
-    retriever, store, queries = bench_retriever(device)
+    retriever, store, asked = bench_retriever(device, embedder, reranker)
+    asked = asked[:queries or len(asked)]
+    warmup = bench.WARMUP if warmup < 0 else warmup
 
     async def run_all():
-        for q in queries[:bench.WARMUP]:
+        for q in asked[:warmup]:
             await retriever.perform_hybrid_retrieval(q)
         texts, times = [], []
-        for q in queries:
+        for q in asked:
             t = time.perf_counter()
             text, _ = await retriever.perform_hybrid_retrieval(q)
             times.append((time.perf_counter() - t) * 1e3)
@@ -541,7 +599,8 @@ def bench_retrieval(device: str) -> dict:
 
     texts, times = asyncio.run(run_all())
     times.sort()
-    return {"texts": texts, "p50_ms": statistics.median(times),
+    return {"texts": texts, "queries": asked,
+            "p50_ms": statistics.median(times),
             "p95_ms": times[int(0.95 * (len(times) - 1))],
             "entities": len(store.entities), "chunks": len(store.chunks),
             "rels": len(store.rels)}
@@ -2302,8 +2361,550 @@ def phase_acs(card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 17
+STREAM_SECONDS = 4.0
+STREAM_K = 3
+# the stream memories' row counts at which the top-k kernel is checked:
+# empty, one row, k - 1 rows, several hundred (capacity 1024, d 512)
+STREAM_STORE_ROWS = (0, 1, STREAM_K - 1, 300)
+# phase 17: a greedy byte of a chunk's caption in the batch of 8 may
+# differ from the chunk's own B = 1 caption only at a near-tie: at the
+# first differing step, the B = 1 context's teacher-forced logits (bf16,
+# steps of 0.0078 near 1) of the two bytes within this of each other
+CAPTION_TIE_TOL = 0.05
+
+
+def flash_pairs(t: int, nv: int) -> int:
+    """Query-key pairs the prefix-causal mask lets through."""
+    return sum(min(max(r, nv - 1), t - 1) + 1 for r in range(t))
+
+
+def stream_kernels(tc, chunks: np.ndarray, seed: int) -> dict:
+    """Kernels 2, 3a and 1 against their plain versions at the shapes the
+    stream runtime gives them: preprocessing of 5, 40 and 80 frames of
+    240 x 320 (fast and exact; a paced engine that fell behind batches two
+    windows of 8 streams), the captioner's prefill (nv 8 + BOS, 8 heads x
+    64, bf16) at B 1, 8 and 16, and the top-k of a stream's memory
+    (capacity 1024 x 512) holding 0, 1, k - 1 and 300 rows; with their
+    times and bounds."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.parallel.serving import make_embedding_store
+
+    out = {"preprocess": {}, "flash": {}, "cosine": {}}
+    frames = chunks.reshape(-1, *chunks.shape[2:])
+    frames = np.concatenate([frames, frames[::-1]])
+    for nf in (5, 40, 80):
+        x = torch.from_numpy(np.ascontiguousarray(frames[:nf])).cuda()
+        for fast in (True, False):
+            got = pre.preprocess_frames(x, 224, fast)
+            torch.cuda.synchronize()
+            ref = pre.preprocess_ref(x, 224, fast)
+            tol = pre.TOL_FAST if ref.dtype == torch.bfloat16 else pre.TOL_F32
+            err = float((got.float() - ref.float()).abs().max())
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            assert bool(torch.isfinite(got).all()) and err <= tol, \
+                f"preprocess {nf}x240x320 fast={fast}: {err} > {tol}"
+            out_bytes = nf * 224 * 224 * 3 * got.element_size()
+            out["preprocess"][f"b{nf}_240x320_"
+                              f"{'fast' if fast else 'exact'}"] = {
+                "max_abs_err": err, "tol": tol,
+                "kernel_ms": graph_ms(
+                    lambda: pre.preprocess_frames(x, 224, fast)),
+                "plain_ms": graph_ms(lambda: pre.preprocess_ref(x, 224,
+                                                                fast)),
+                "library_ms": graph_ms(lambda: library_resize(x, 224)),
+                **bound(x.numel() + out_bytes, 0.0, F32_FLOPS)}
+    rng = np.random.default_rng(seed + 17)
+    t, nv = 9, 8
+    for b in (1, 8, 16):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, t, 8, 64), dtype=np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(3))
+        got = fa.flash_attention(q, k, v, nv)
+        torch.cuda.synchronize()
+        ref = fa.attention_ref(q, k, v, nv).to(torch.bfloat16).float()
+        err = (got.float() - ref).abs()
+        excess = float((err - fa.TOL_ABS - fa.TOL_REL * ref.abs()).max())
+        assert bool(torch.isfinite(got).all()) and excess <= 0, \
+            f"flash prefill b={b}: max |err| {float(err.max())}"
+        mask = fa.prefix_causal_mask(t, nv, q.device)
+        out["flash"][f"b{b}_T{t}"] = {
+            "max_abs_err": float(err.max()),
+            "kernel_ms": graph_ms(lambda: fa.flash_attention(q, k, v, nv)),
+            "plain_ms": graph_ms(lambda: fa.attention_ref(q, k, v, nv)),
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask)),
+            **bound(4 * b * t * 8 * 64 * 2, 4.0 * b * 8 * 64
+                    * flash_pairs(t, nv), BF16_FLOPS)}
+    host = rng.normal(size=(1024, DIM)).astype(np.float32)
+    host /= np.linalg.norm(host, axis=1, keepdims=True)
+    store = torch.from_numpy(host).cuda()
+    query = torch.from_numpy(rng.normal(size=(1, DIM)).astype(np.float32)
+                             ).cuda()
+    for rows in STREAM_STORE_ROWS:
+        err = check_topk(tc, query, store, STREAM_K, rows)
+        out["cosine"][f"rows{rows}"] = {"max_abs_err": err}
+    past = torch.arange(1024, device="cuda") >= 300
+    out["cosine"]["rows300"].update({
+        "kernel_ms": cuda_ms(lambda: tc.cosine_topk(query, store, STREAM_K,
+                                                    count=300)),
+        "device_ms": graph_ms(lambda: tc.cosine_topk(query, store, STREAM_K,
+                                                     count=300)),
+        "plain_ms": cuda_ms(lambda: tc.cosine_topk_ref(query, store,
+                                                       STREAM_K, count=300)),
+        "library_ms": cuda_ms(lambda: library_topk(query, store, past,
+                                                   STREAM_K)),
+        # the 300 rows the count lets in, the query and the top-k out
+        **bound(300 * DIM * 4 + DIM * 4 + STREAM_K * 8,
+                2.0 * 300 * DIM, F32_FLOPS)})
+    before = dict(tc.LAUNCHES)
+    empty = make_embedding_store(dim=DIM)
+    assert empty.search(host[:1], k=STREAM_K) == [[]]
+    assert tc.LAUNCHES == before, "an empty memory launched a kernel"
+    return out
+
+
+def caption_tokens(vlm, chunks) -> tuple:
+    """The tokens ``caption_batch_sync`` decodes for ``chunks`` in one
+    batch, and the batch's vision prefixes."""
+    from vidgraph_tpu_torch.models.captioner import generate
+
+    emb = vlm.embed_frames(vlm.host_frames(chunks))
+    vis = vlm.vision_prefixes(chunks, emb)
+    return generate(vlm._serve_params, vlm.cap_cfg, vis,
+                    max_new=vlm.max_new), vis
+
+
+def batch_vs_single(vlm, chunks) -> dict:
+    """The batch of 8 chunks' captions against each chunk's own B = 1
+    caption: equal, or the first differing byte a near-tie of the B = 1
+    context's logits (teacher-forced ``forward`` on its own bytes)."""
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.models.captioner import forward
+
+    toks8, _ = caption_tokens(vlm, chunks)
+    rows = []
+    for i, chunk in enumerate(chunks):
+        toks1, vis1 = caption_tokens(vlm, [chunk])
+        a, b = toks1[0].cpu().numpy(), toks8[i].cpu().numpy()
+        diff = np.nonzero(a != b)[0]
+        if not len(diff):
+            rows.append({"equal": True})
+            continue
+        s = int(diff[0])
+        ctx = torch.from_numpy(np.concatenate(
+            [[tokenizer.BOS_ID], a[:s]]).astype(np.int64))[None] \
+            .to(vis1.device)
+        with torch.no_grad():
+            logits = forward(vlm._serve_params, vlm.cap_cfg, vis1, ctx)[0, -1]
+        gap = float(logits[int(a[s])] - logits[int(b[s])])
+        top2 = torch.topk(logits, 2).values
+        rows.append({"equal": False, "first_differing_step": s,
+                     "b1_byte": int(a[s]), "b8_byte": int(b[s]),
+                     "logit_gap": gap,
+                     "top2_gap": float(top2[0] - top2[1])})
+        log(f"phase 17: chunk {i}: the batch of 8 and B = 1 differ first at "
+            f"step {s}: {json.dumps(rows[-1])}")
+        assert abs(gap) < CAPTION_TIE_TOL, \
+            f"chunk {i}: the bytes differ at step {s} with a logit gap " \
+            f"{gap} (not a near-tie under {CAPTION_TIE_TOL})"
+    return {"chunks": len(chunks), "equal": sum(r["equal"] for r in rows),
+            "differing": [r for r in rows if not r["equal"]]}
+
+
+def phase_streams(tc, seed: int, card: str) -> dict:
+    """The live multi-stream runtime at full width (``backend.vlm: tpu``,
+    ViT-B/32 + ``base()`` from seed 0, the hash embed client), through
+    ``scripts/measure_torch_stream_scaling.py``'s runs: 1 and 8 streams as
+    fast as the card allows, 8 paced by the wall clock, ``STREAM_SECONDS``
+    of 240 x 320 video at 30 fps each, queries every 0.5 s, a live KG on
+    the local chat client behind the 8-stream run."""
+    from vidgraph_tpu_torch.core.config import PipelineConfig
+    from vidgraph_tpu_torch.graph.embedded import EmbeddedGraphStore
+    from vidgraph_tpu_torch.services.llm_client import LocalChatClient
+    from vidgraph_tpu_torch.streams import LiveKGIngestor
+
+    mod = load_script("measure_torch_stream_scaling")
+    vlm, embed = mod.serving_clients()
+    banks = [mod.frame_bank(i, seed) for i in range(8)]
+    offsets = np.linspace(0, int(mod.FPS * mod.CHUNK_SECONDS) - 1,
+                          mod.FRAMES_PER_CHUNK).astype(int)
+    chunks = np.stack([bank[offsets] for bank in banks])
+    kernels = stream_kernels(tc, chunks, seed)
+    log(f"phase 17: kernels 2, 3a and 1 agree with their plain versions at "
+        f"the stream's shapes; times on {card} (ms; graph replay for "
+        f"preprocessing and flash, CUDA events for the top-k): "
+        f"{json.dumps(kernels)}")
+    mod.run(8, vlm, embed, 1.0, realtime=False, seed=seed,
+            with_queries=False, banks=banks)             # first calls
+
+    reset_vision_counts()
+    tc.reset_counts()
+    cfg = PipelineConfig()
+    cfg.backend.llm = "local"
+    ingestor = LiveKGIngestor(
+        cfg, LocalChatClient(), embed,
+        store_factory=lambda sid: EmbeddedGraphStore(
+            sid, persist_dir=None, persist=False, dim=embed.dim))
+    runs, engines = {}, {}
+    for name, n, realtime, kg in (("1_stream", 1, False, None),
+                                  ("8_streams", 8, False, ingestor),
+                                  ("8_streams_realtime", 8, True, None)):
+        engines[name], runs[name] = mod.run(
+            n, vlm, embed, STREAM_SECONDS, realtime=realtime, seed=seed,
+            kg_extractor=kg, banks=banks[:n])
+    asyncio.run(ingestor.flush())
+    torch.cuda.synchronize()
+    counts = {**vision_counts(), **{f"cosine_{k}": v
+                                    for k, v in tc.LAUNCHES.items()}}
+    counts["plain"] += tc.REF_CALLS
+    batches = sum(r["batches"] for r in runs.values())
+    log(f"phase 17: launches in the stream runs {json.dumps(counts)} for "
+        f"{batches} caption batches")
+    assert counts["preprocess"] >= batches, counts
+    assert counts["flash"] == vlm.cap_cfg.layers * batches, counts
+    assert counts["cosine_score_topk"] > 0, counts
+    assert counts["cosine_merge"] == counts["cosine_score_topk"], counts
+    assert counts["plain"] == 0, f"a plain version served {counts}"
+
+    for name, engine in engines.items():
+        out = runs[name]
+        for sid, st in out["streams"].items():
+            assert st["chunks_done"] > 0, f"{name}: {sid} did no chunk"
+        assert engine.answers, f"{name}: no query was answered"
+        # each stream asked for one of its own captions: the hit is that
+        # chunk (or one with the same caption), as every hit is its own
+        for sid, caps in engine.captions.items():
+            cap = next(iter(caps.values()))
+            asyncio.run(engine.query(sid, cap["content"]))
+            same = {c["id"] for c in caps.values()
+                    if c["content"] == cap["content"]}
+            top = engine.answers[-1]["chunks"]
+            assert top and top[0]["id"] in same and \
+                top[0]["score"] > 0.99, f"{name}: {sid}: {top}"
+        for ans in engine.answers:
+            assert all(c["id"].startswith(f"{ans['stream']}_")
+                       for c in ans["chunks"]), f"{name}: {ans}"
+        # unpaced, every window of every stream completes at once; paced,
+        # an overloaded engine keeps up to max_lag_windows a stream
+        most = len(out["streams"]) * (engine.max_lag_windows
+                                      if name.endswith("realtime") else 1)
+        assert max(engine.batch_sizes) <= most and (
+            name.endswith("realtime")
+            or set(engine.batch_sizes) == {len(out["streams"])}), \
+            (name, engine.batch_sizes)
+    graphs = {sid: {"nodes": s.get_node_count(),
+                    "rels": s.get_relationship_count()}
+              for sid, s in ingestor.stores.items()}
+    assert len(graphs) == 8 and all(g["nodes"] > 0 for g in graphs.values()), \
+        graphs
+    ingestor.close()
+    captions = batch_vs_single(vlm, [list(c) for c in chunks])
+    profile = mod.profile_process_ready(8, vlm, embed, seed)
+    keys = ("realtime_factor", "coverage", "total_shed_chunks",
+            "total_dropped_frames", "chunk_latency_p50_ms",
+            "query_under_load_p50_ms", "query_under_load_p95_ms",
+            "query_p50_ms", "query_p95_ms", "queries_served", "batches",
+            "chunks_per_batch",
+            "chunks_done", "wall_seconds")
+    res = {"runs": {name: {k: r[k] for k in keys} for name, r in
+                    runs.items()},
+           "video_seconds": STREAM_SECONDS, "live_kg": graphs,
+           "counts": counts, "launches_per_process_ready": {
+               "flash": counts["flash"] / batches,
+               "preprocess": counts["preprocess"] / batches,
+               "all_kernels_profiled": profile["launches"]},
+           "device_busy_share": profile["device_busy_share"],
+           "profile_process_ready": profile, "captions_b8_vs_b1": captions,
+           "kernels": kernels}
+    log(f"phase 17: streams on {card} (realtime_factor of the unpaced runs "
+        f"is their throughput factor): {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 18
+SERVE_STREAMS, SERVE_CHUNKS, SERVE_QUERIES = 4, 240, 24
+
+
+async def _http(port: int, method: str, path: str, body=None):
+    """One request to the server on localhost: (status, JSON, ms)."""
+    t = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+                 f"Content-Type: application/json\r\nContent-Length: "
+                 f"{len(payload)}\r\nConnection: close\r\n\r\n".encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    ms = (time.perf_counter() - t) * 1e3
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), json.loads(data), ms
+
+
+def serve_requests(seed: int) -> list:
+    """The session's requests: ``SERVE_CHUNKS`` ingests over
+    ``SERVE_STREAMS`` streams, ``SERVE_QUERIES`` queries, four retrieves
+    on the bench graph, the stats."""
+    import bench
+
+    rng = random.Random(seed)
+    reqs = []
+    for i in range(SERVE_CHUNKS):
+        sid = f"cam{i % SERVE_STREAMS}"
+        reqs.append(("POST", "/v1/ingest", {
+            "stream": sid, "chunk_id": f"{sid}_{i // SERVE_STREAMS}",
+            "time": f"00:{i % 60:02d}-00:{(i + 4) % 60:02d}",
+            "content": f"chunk {i}: the person {rng.choice(bench._VERBS)} a "
+                       f"{rng.choice(bench._COLORS)} "
+                       f"{rng.choice(bench._OBJECTS)} near the "
+                       f"{rng.choice(bench._OBJECTS)}"}))
+    for i in range(SERVE_QUERIES):
+        reqs.append(("POST", "/v1/query", {
+            "stream": f"cam{i % SERVE_STREAMS}", "k": 3,
+            "query": f"where is the {rng.choice(bench._COLORS)} "
+                     f"{rng.choice(bench._OBJECTS)}"}))
+    for i in range(4):
+        reqs.append(("POST", "/v1/retrieve", {
+            "graph_uuid": "bench", "query": f"What color is the "
+            f"{rng.choice(bench._OBJECTS)} on the bench?"}))
+    reqs.append(("GET", "/v1/stats", None))
+    return reqs
+
+
+def serve_session(device: str, seed: int, tmp: Path) -> list:
+    """``VideoMemoryServer`` on ``device`` on an ephemeral port, with the
+    bench graph built, exported and imported under uuid ``bench``; every
+    request of ``serve_requests`` over HTTP, in order."""
+    import bench
+    from vidgraph_tpu_torch.core.config import PipelineConfig
+    from vidgraph_tpu_torch.graph.embedded import EmbeddedGraphStore
+    from vidgraph_tpu_torch.graph.exporter import (GraphExporter,
+                                                   GraphImporter)
+    from vidgraph_tpu_torch.services.embed_client import make_embed_client
+    from vidgraph_tpu_torch.services.server import VideoMemoryServer
+
+    os.environ["VIDGRAPH_TORCH_DEVICE"] = device
+    root = tmp / device
+    src = EmbeddedGraphStore("bench_src", persist_dir=None, persist=False)
+    bench._build_graph(src, make_embed_client("tpu", dim=512),
+                       random.Random(42))
+    export = GraphExporter(src).export_graph(str(root / "bench.json"))
+    GraphImporter(lambda uuid: EmbeddedGraphStore(
+        uuid, persist_dir=str(root / "gs"))).import_graph(export, "bench")
+    cfg = PipelineConfig()
+    cfg.graph_store.persist_dir = str(root / "gs")
+
+    async def run():
+        server = VideoMemoryServer(cfg, port=0)
+        await server.start()
+        try:
+            return [await _http(server.port, m, p, b)
+                    for m, p, b in serve_requests(seed)]
+        finally:
+            await server.stop()
+    try:
+        return asyncio.run(run())
+    finally:
+        os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
+
+
+def same_hits(got: list, ref: list) -> bool:
+    """Query hits equal: ids, contents and times in order, scores within
+    ``TOL``; hits whose scores tie within ``TOL`` in any order."""
+    if len(got) != len(ref) or any(abs(g["score"] - r["score"]) > TOL
+                                   for g, r in zip(got, ref)):
+        return False
+    def groups(hits):
+        out, last = [], None
+        for h in hits:
+            if last is None or abs(h["score"] - last) > TOL:
+                out.append(set())
+            out[-1].add(h["id"])
+            last = h["score"]
+        return out
+    return groups(got) == groups(ref)
+
+
+def phase_serve(tc, seed: int, card: str) -> dict:
+    """The HTTP service on the card: ingest, query, retrieve and stats
+    through ``VideoMemoryServer``, then the same session on the CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tc.reset_counts()
+        cuda = serve_session("cuda", seed, tmp)
+        launches = launch_counts(tc)
+        cpu = serve_session("cpu", seed, tmp)
+    reqs = serve_requests(seed)
+    assert all(code == 200 for code, _, _ in cuda), \
+        [c for c in cuda if c[0] != 200][:3]
+    diffs = []
+    for (m, path, body), (_, g, _), (_, r, _) in zip(reqs, cuda, cpu):
+        assert g.get("ok") and set(g) == set(r), (path, g, r)
+        if path == "/v1/query":
+            ok = same_hits(g["chunks"], r["chunks"])
+            assert all(c["id"].startswith(f"{body['stream']}_")
+                       for c in g["chunks"]), g
+        elif path == "/v1/retrieve":
+            ok = g["retrieval"] == r["retrieval"]
+            assert g["retrieval"].startswith("Found results"), g
+        else:
+            ok = g == r
+        if not ok:
+            diffs.append(path)
+    assert not diffs, f"responses differ from the CPU run's: {diffs}"
+    assert launches["score_topk"] >= SERVE_QUERIES and \
+        launches["plain"] == 0, launches
+    stats = cuda[-1][1]
+    assert stats["streams"] == {f"cam{i}": SERVE_CHUNKS // SERVE_STREAMS
+                                for i in range(SERVE_STREAMS)}, stats
+    by_route = {}
+    for (_, path, _), (_, _, ms) in zip(reqs, cuda):
+        by_route.setdefault(path, []).append(ms)
+    res = {"requests": len(reqs), "launches": launches,
+           "request_p50_ms": {p: statistics.median(v)
+                              for p, v in by_route.items()},
+           "request_max_ms": {p: max(v) for p, v in by_route.items()},
+           "all_p50_ms": statistics.median(ms for _, _, ms in cuda),
+           "equal_to_cpu": True}
+    log(f"phase 18: the HTTP server on {card}: every response's keys, hits "
+        f"and retrieved texts equal the CPU run's: {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 19
+# the encoders on the card against the same module on the CPU with the
+# same weights: the bfloat16 text embedder per component of its unit
+# vectors, the float32 models max |diff| / max(1, max |cpu|)
+ENC_BF16_TOL = 3e-3
+ENC_F32_TOL = 1e-5
+# the card times all of bench's queries after its warm-ups; the CPU runs
+# the first few of them, unwarmed, for comparison only: ~1,250
+# cross-encoder pairs a query, seconds a query on the card machine's 8
+# cores
+ENC_CPU_QUERIES = 2
+
+
+def host_ms_of(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn()``, which ends on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def busy_share(fn, wall_ms: float) -> float:
+    """The device's busy time in one profiled ``fn()`` over its
+    unprofiled wall ``wall_ms``."""
+    from vidgraph_tpu_torch.core.profiling import profile_device
+
+    return profile_device(fn)["device_busy_ms"] / wall_ms
+
+
+def encoder_texts(n: int, seed: int) -> list:
+    import bench
+
+    rng = random.Random(seed)
+    return [f"Time: 00:{i % 60:02d} Content: the person "
+            f"{rng.choice(bench._VERBS)} a {rng.choice(bench._COLORS)} "
+            f"{rng.choice(bench._OBJECTS)} on the laboratory bench while a "
+            f"{rng.choice(bench._COLORS)} {rng.choice(bench._OBJECTS)} sits "
+            f"nearby ({i})" for i in range(n)]
+
+
+def phase_encoders(seed: int, card: str) -> dict:
+    """The trained encoders at their default widths with the port's
+    seeded weights, on the card against the CPU: the text embedder
+    (bf16, and float32 at B 8) at B 8/64/256, the cross-encoder at 8/16/32
+    pairs, the answer selector on bench's retrieval contexts; then bench's
+    retrieval under ``backend.reranker: trained`` and ``backend.embedder:
+    transformer``."""
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.models.answer_selector import AnswerSelector
+    from vidgraph_tpu_torch.models.reranker import (CrossEncoderReranker,
+                                                    batch_encode_pairs,
+                                                    score_tokens)
+    from vidgraph_tpu_torch.models.text_embedder import \
+        TransformerTextEmbedder
+
+    gpu, cpu = torch.device("cuda"), torch.device("cpu")
+    texts = encoder_texts(256, seed)
+    res = {"embedder": {}, "reranker": {}, "selector": {}}
+    for dtype, tol, sizes in ((torch.bfloat16, ENC_BF16_TOL, (8, 64, 256)),
+                              (torch.float32, ENC_F32_TOL, (8,))):
+        on_gpu = TransformerTextEmbedder(seed=seed, dtype=dtype, device=gpu)
+        on_cpu = TransformerTextEmbedder(seed=seed, dtype=dtype, device=cpu)
+        for b in sizes:
+            toks = tokenizer.batch_encode(texts[:b], on_gpu.max_len)
+            got, want = on_gpu._forward(toks), on_cpu._forward(toks)
+            err = float(np.abs(got - want).max())
+            assert np.isfinite(got).all() and err <= tol, \
+                f"embedder {dtype} B={b}: {err} > {tol}"
+            ms = host_ms_of(lambda: on_gpu._forward(toks))
+            res["embedder"][f"{str(dtype)[6:]}_b{b}"] = {
+                "max_abs_err": err, "tol": tol, "ms": ms,
+                "device_busy_share": busy_share(
+                    lambda: on_gpu._forward(toks), ms)}
+    rr_gpu = CrossEncoderReranker(seed=seed, device=gpu)
+    rr_cpu = CrossEncoderReranker(seed=seed, device=cpu)
+    query = "what color is the beaker on the bench?"
+    for n in (8, 16, 32):
+        toks = batch_encode_pairs(query, texts[:n], rr_gpu.cfg)
+        got = score_tokens(rr_gpu.params, rr_gpu.cfg, toks, gpu)
+        want = score_tokens(rr_cpu.params, rr_cpu.cfg, toks, cpu)
+        err = float(np.abs(got - want).max())
+        limit = ENC_F32_TOL * max(1.0, float(np.abs(want).max()))
+        assert np.isfinite(got).all() and err <= limit, \
+            f"reranker {n} pairs: {err} > {limit}"
+        ms = host_ms_of(lambda: score_tokens(rr_gpu.params, rr_gpu.cfg,
+                                             toks, gpu))
+        res["reranker"][f"pairs{n}"] = {
+            "max_abs_err": err, "tol": limit, "ms": ms,
+            "device_busy_share": busy_share(lambda: score_tokens(
+                rr_gpu.params, rr_gpu.cfg, toks, gpu), ms)}
+    del rr_gpu, rr_cpu
+
+    retrieval = bench_retrieval("cuda", embedder="transformer",
+                                reranker="trained")
+    cpu_run = bench_retrieval("cpu", embedder="transformer",
+                              reranker="trained", queries=ENC_CPU_QUERIES,
+                              warmup=0)
+    os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
+    assert all(retrieval["texts"]), "an empty retrieval text"
+    res["retrieval"] = {
+        "queries": len(retrieval["queries"]), "p50_ms": retrieval["p50_ms"],
+        "p95_ms": retrieval["p95_ms"], "cpu_queries": ENC_CPU_QUERIES,
+        "texts_equal_cpu": sum(a == b for a, b in zip(retrieval["texts"],
+                                                      cpu_run["texts"])),
+        "cpu_p50_ms": cpu_run["p50_ms"]}
+    for mode in ("blend", "pure"):
+        sel_gpu = AnswerSelector(seed=seed, mode=mode, device=gpu)
+        sel_cpu = AnswerSelector(seed=seed, mode=mode, device=cpu)
+        questions = retrieval["queries"][:4]
+        contexts = retrieval["texts"][:4]
+        got = [sel_gpu.answer(q, c) for q, c in zip(questions, contexts)]
+        want = [sel_cpu.answer(q, c) for q, c in zip(questions, contexts)]
+        assert all(got), got
+        res["selector"][mode] = {
+            "answers_equal_cpu": sum(a == b for a, b in zip(got, want)),
+            "answers": len(got),
+            "ms": host_ms_of(lambda: sel_gpu.answer(questions[0],
+                                                    contexts[0]), reps=3)}
+        assert got == want, f"selector {mode}: answers differ from the CPU"
+    log(f"phase 19: the trained encoders on {card} agree with the CPU: "
+        f"{json.dumps(res)}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
-                  quant, bwd, training) -> dict:
+                  quant, bwd, training, streams) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -2315,8 +2916,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     store_bytes = STORE_ROWS * DIM * 4
     score_ops = 2.0 * 16 * STORE_ROWS * DIM
     t, nv, b32 = 2056, 8, flash["b32_T2056"]
-    pairs = sum(min(max(r, nv - 1), t - 1) + 1 for r in range(t))
+    pairs = flash_pairs(t, nv)
     vision_counts = [vision["counts"][m] for m in ("einsum", "fused")]
+    vision_counts.append(streams["counts"])
+    sk = streams["kernels"]
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
@@ -2342,6 +2945,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          **bound(store_bytes + kern["partial_bytes"], score_ops, F32_FLOPS),
          "topk_device_ms": {key: kern["times"][key]["device_ms"]
                             for key in ("topk_b1_k5", "topk_b16_k5")},
+         "stream_memory": {"timed": "cosine_topk, B=1, k=3, 300 of 1024 "
+                                    "rows x 512 f32 (a stream's memory)",
+                           "launches": streams["counts"]["cosine_score_topk"],
+                           **sk["cosine"]},
          "timed": "per-segment top-5 partials, B=16, 200000x512 f32; "
                   "topk_device_ms: cosine_topk (tile pass + merge) from "
                   "CUDA-graph replay"},
@@ -2378,6 +2985,8 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "library_kernels": b32["library_kernels"],
          **bound(4 * 32 * t * 8 * 64 * 2, 4.0 * 32 * 8 * 64 * pairs,
                  BF16_FLOPS),
+         "stream_prefill": {"launches": streams["counts"]["flash"],
+                            **sk["flash"]},
          "timed": "b=32, T=2056, 8 heads x 64, bf16, nv=8"},
         {"name": "preprocess_frames", "route": "cuda",
          "source": "vidgraph_tpu_torch/csrc/preprocess.cu",
@@ -2388,6 +2997,8 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                        "neighbouring outputs, two blocks an SM",
          "b160_ms": pre["b160_405x720_fast"]["kernel_ms"],
          "b160_bound_ms": pre["b160_405x720_fast"]["bound_ms"],
+         "stream_240x320": {"launches": streams["counts"]["preprocess"],
+                            **sk["preprocess"]},
          "launches": sum(c["preprocess"] for c in vision_counts),
          "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
          "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
@@ -2469,7 +3080,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14,15,16 "
+                    help="development: run only these of phases 14-19 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2499,16 +3110,18 @@ def main() -> int:
 
     only = ({int(x) for x in args.phases.split(",")} if args.phases
             else None)
-    if only is not None and not only <= {14, 15, 16}:
-        ap.error("--phases takes 14, 15 and 16")
+    late = {14: lambda: phase_flash_backward(args.seed, card),
+            15: lambda: phase_training(args.seed, card),
+            16: lambda: phase_acs(card),
+            17: lambda: phase_streams(tc, args.seed, card),
+            18: lambda: phase_serve(tc, args.seed, card),
+            19: lambda: phase_encoders(args.seed, card)}
+    if only is not None and not only <= set(late):
+        ap.error("--phases takes 14 to 19")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
-        if 14 in only:
-            phase_flash_backward(args.seed, card)
-        if 15 in only:
-            phase_training(args.seed, card)
-        if 16 in only:
-            phase_acs(card)
+        for number in sorted(only):
+            late[number]()
         assert "jax" not in sys.modules, "the port's run imported jax"
         log(f"phases {sorted(only)} done at {time.perf_counter() - t0:.1f} s "
             f"(partial run)")
@@ -2527,13 +3140,17 @@ def main() -> int:
     q8k = phase_q8_matmul(args.seed, card)
     quant = phase_quantized(args.seed, card)
     log(f"phases 1-13 done at {time.perf_counter() - t0:.1f} s")
-    bwd = phase_flash_backward(args.seed, card)
-    training = phase_training(args.seed, card)
-    acs = phase_acs(card)
+    bwd = late[14]()
+    training = late[15]()
+    acs = late[16]()
     log(f"phases 1-16 done at {time.perf_counter() - t0:.1f} s")
+    streams = late[17]()
+    serve = late[18]()
+    encoders = late[19]()
+    log(f"phases 1-19 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
-                           q8k, quant, bwd, training)
+                           q8k, quant, bwd, training, streams)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -2541,7 +3158,9 @@ def main() -> int:
         "flash_ms": flash, "chat_lm": chat, "prefill_logits": logits,
         "preprocess_ms": pre, "short_attention_ms": short,
         "vision": vision, "q8_matmul_ms": q8k, "quantized": quant,
-        "flash_backward": bwd, "training": training, "acs": acs})
+        "flash_backward": bwd, "training": training, "acs": acs,
+        "streams": streams, "serve": serve, "encoders": encoders,
+        "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -140,16 +140,43 @@ def test_checkpoint_and_sidecar(tmp_path, clients):
         assert torch.equal(a, loaded[k]), k
 
 
-def test_selector_missing_warns_present_raises(tmp_path):
+def test_selector_missing_warns(tmp_path):
+    """A missing selector checkpoint is skipped: no selector, and an
+    answer prompt falls through to the decode."""
     client = tllm.TPUChatClient(
         cfg=TCFG, answer_selector_path=str(tmp_path / "absent.npz"))
     assert client._selector is None
     assert client._try_selector("QUESTION: q VIDEO CONTEXT: c "
                                 "CONCISE ANSWER:") is None
+
+
+def test_selector_present_loads_and_answers_as_jax(tmp_path, clients):
+    """A present selector checkpoint (the JAX package's npz and
+    ``selector_cfg`` sidecar) loads and answers the benchmark's answer
+    prompts as the JAX client does, while other prompts still decode."""
+    from vidgraph_tpu.models import checkpoint as jck
+    from vidgraph_tpu.models import reranker as jrr
+    from vidgraph_tpu.pipeline.prompts import build_benchmark_answer_prompt
+    from vidgraph_tpu_torch.models.answer_selector import AnswerSelector
+
     present = tmp_path / "selector.npz"
-    present.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tllm.TPUChatClient(cfg=TCFG, answer_selector_path=str(present))
+    rcfg = jrr.RerankerConfig.tiny()
+    jck.save_params(jrr.init_reranker_params(rcfg, seed=4), str(present))
+    present.with_suffix(".json").write_text(json.dumps({"selector_cfg": {
+        "width": rcfg.width, "layers": rcfg.layers, "heads": rcfg.heads,
+        "max_len": rcfg.max_len, "query_budget": rcfg.query_budget}}))
+    jc, tc = clients
+    jsel = jllm.TPUChatClient(cfg=JCFG, params=jc.params, max_new=32,
+                              answer_selector_path=str(present))
+    tsel = tllm.TPUChatClient(cfg=TCFG, params=tc.params, max_new=32,
+                              answer_selector_path=str(present))
+    assert isinstance(tsel._selector, AnswerSelector)
+    ctx = ("Found results:\nContent: The scientist pours liquid into a "
+           "red beaker. (score: 0.83)\nThe balance displays 42.5 g.")
+    for q in ("what color is the beaker?", "what does the balance show?"):
+        prompt = build_benchmark_answer_prompt(q, ctx)
+        assert tsel.complete_sync(prompt) == jsel.complete_sync(prompt)
+    assert tsel.complete_sync(PROMPTS[0]) == jsel.complete_sync(PROMPTS[0])
 
 
 def test_make_chat_client_tpu_serves_the_chat_config():

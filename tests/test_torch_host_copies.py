@@ -11,9 +11,11 @@ VERBATIM = [
     "core/__init__.py",
     "core/logger.py",
     "core/metrics.py",
+    "graph/__init__.py",
     "graph/base.py",
     "graph/embedded.py",
     "graph/exporter.py",
+    "graph/neo4j_backend.py",
     "io/__init__.py",
     "io/video.py",
     "memory/__init__.py",
@@ -26,13 +28,20 @@ VERBATIM = [
     "pipeline/network_info.py",
     "pipeline/pre_injector.py",
     "pipeline/prompts.py",
+    "pipeline/prune.py",
     "pipeline/refiner.py",
     "pipeline/retriever.py",
     "pipeline/retriever_hybrid.py",
     "pipeline/text_splitter.py",
     "pipeline/vlm_extractor.py",
     "services/embed_client.py",
+    "services/server.py",
+    "streams/ingest.py",
+    "streams/realtime.py",
     "streams/scheduler.py",
+    "utils/__init__.py",
+    "utils/embedding_utils.py",
+    "utils/frame_utils.py",
 ]
 
 
@@ -44,7 +53,7 @@ def test_host_module_is_a_verbatim_copy(rel):
 
 
 # copies whose code is the JAX module's, under a module docstring of their own
-CODE_COPIES = ["models/instruct_data.py"]
+CODE_COPIES = ["cli/main.py", "models/instruct_data.py"]
 
 
 def _code(path: Path) -> str:
@@ -77,6 +86,7 @@ DEFINITION_COPIES = {
         "_canon_entity", "_canon_rel", "parse_subgraph_context", "_section",
         "_COLOR_WORDS", "_MATERIAL_WORDS", "_stem", "_idf_weights",
         "answer_candidates", "assemble_answer", "teacher_answer_scores",
+        "_load_selector",
         "extractive_answer", "LocalChatClient", "fit_prompt_bytes",
         "make_chat_client"],
     "models/grammar.py": [
@@ -88,23 +98,17 @@ DEFINITION_COPIES = {
         "Grammar.repair", "pipeline_grammar"],
     "services/rerank_client.py": [
         "logger", "RerankerError", "RerankClient", "TPURerankClient",
-        "HttpRerankClient"],
+        "TrainedRerankClient", "HttpRerankClient", "make_rerank_client"],
 }
 PORT_OWN = {
     "services/llm_client.py": {
-        "_load_selector": "the answer selector is not ported: a present "
-                          "checkpoint raises (ROADMAP queue 1 #4)",
         "TPUChatClient": "the chat LM's decode in PyTorch on the card",
     },
     "models/grammar.py": {
         "Grammar.device_table": "the table as a torch tensor on the port's "
                                 "device, not a JAX array",
     },
-    "services/rerank_client.py": {
-        "TrainedRerankClient": "the cross-encoder is not ported (ROADMAP "
-                               "queue 1 #4)",
-        "make_rerank_client": "``trained`` raises until it is",
-    },
+    "services/rerank_client.py": {},
 }
 
 
@@ -169,7 +173,8 @@ NEW = {"convert.py", "ops/_build.py", "ops/flash_attention.py"}
 # modules rewritten for PyTorch (the kernels' wrappers and the models that
 # reach them), held to the JAX package by their own tests/test_torch_*.py
 REWRITTEN = {"ops/preprocess.py", "ops/short_attention.py", "models/vit.py",
-             "services/vlm_client.py"}
+             "services/vlm_client.py", "models/text_embedder.py",
+             "models/reranker.py", "models/answer_selector.py"}
 
 
 def test_every_port_module_has_a_counterpart():

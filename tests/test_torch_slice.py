@@ -265,15 +265,6 @@ def test_cli_kg_batch_retrieve_benchmark(tmp_path, capsys):
     assert bench["statistics"]["total_queries"] == 3
 
 
-@pytest.mark.parametrize("command", ["stream", "serve", "prune"])
-def test_cli_commands_not_yet_ported_exit_nonzero(command, capsys):
-    args = {"stream": ["--config", "c", "--videos", "v"],
-            "serve": ["--config", "c"],
-            "prune": ["--input", "i", "--output", "o"]}[command]
-    assert cli_main([command, *args]) == 2
-    assert "not yet ported (ROADMAP" in capsys.readouterr().err
-
-
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -83,8 +83,3 @@ def test_embed_client_serves_the_hash_embedder():
                                JaxEmbedder(dim=512).embed(TEXTS[:2]),
                                atol=1e-6, rtol=0)
 
-
-@pytest.mark.parametrize("kind", ["transformer", "hybrid"])
-def test_trained_embedders_are_not_ported_yet(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 6"):
-        te.make_embedder(kind)

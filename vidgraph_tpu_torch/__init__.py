@@ -5,12 +5,16 @@ PyTorch on an NVIDIA H100.  The sub-packages and module names mirror the
 reference's; host modules that need no accelerator are verbatim copies
 (``tests/test_torch_host_copies.py`` keeps them byte-identical).
 
-Ported so far: the query-serving path of the video memory — ``kg`` from a
-``vlm_output.json``, the embedding memory with its hand-written CUDA cosine
-top-k kernel (``csrc/topk_cosine.cu``), hybrid retrieval, ``benchmark``,
-``export`` and ``import`` — and the on-device chat LM (``backend.llm:
-tpu``, ``models/captioner.py``) with its hand-written CUDA FlashAttention
-prefill (``csrc/flash_attention.cu``).  ROADMAP.md lists what comes next.
+Ported so far, all twelve CLI commands on one card: the query path
+(``kg``, hybrid retrieval, ``benchmark``, ``export``, ``import``, ``prune``)
+over the embedding memory with its hand-written CUDA cosine top-k kernel;
+the on-device chat LM and vision (``backend.llm/vlm: tpu``) with the CUDA
+FlashAttention, preprocessing and short-attention kernels; int8 serving
+(the CUDA w8a16 product); training; the live multi-stream runtime
+(``streams/``, CLI ``stream``) and the HTTP service (``services/server.py``,
+CLI ``serve``); the Neo4j store; and the trained encoders (transformer and
+hybrid embedders, cross-encoder reranker, answer selector).  ROADMAP.md
+lists what comes next.
 
 The card is chosen by ``VIDGRAPH_TORCH_DEVICE`` (``core/platform.py``,
 default ``cuda``).  Float32 products run in full float32 on the card

@@ -1,10 +1,11 @@
 """CLI of the PyTorch port, run as ``python -m vidgraph_tpu_torch.cli.main``.
 
-The parser is ``vidgraph_tpu/cli/main.py``'s.  Ported: ``vlm`` and its
-alias ``graph``, ``kg`` (with ``--resume-uuid``), ``retrieve``, ``ask``,
-``batch-retrieve``, ``export``, ``import`` and ``benchmark``.  ``stream``,
-``serve`` and ``prune`` exit with status 2 and name the ROADMAP slice that
-ports them.
+Its code is ``vidgraph_tpu/cli/main.py``'s, all twelve commands: ``vlm``
+and its alias ``graph``, ``kg`` (with ``--resume-uuid``), ``retrieve``,
+``ask``, ``batch-retrieve``, ``export``, ``import``, ``benchmark``,
+``prune``, ``stream`` (the live multi-stream runtime, ``streams/``) and
+``serve`` (the HTTP video-memory service, ``services/server.py``), with the
+same flags and JSON outputs.
 
 CLI — surface parity with the reference (reference:
 src/cli/main.py:187-289): subcommands ``vlm`` (plus ``graph`` alias — the
@@ -20,7 +21,6 @@ import argparse
 import asyncio
 import datetime as _dt
 import json
-import sys
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -29,10 +29,6 @@ from ..core.config import PipelineConfig
 from ..core.logger import get_logger
 
 logger = get_logger("cli")
-
-NOT_PORTED = {"stream": "slice 8, streams and serving",
-              "serve": "slice 8, streams and serving",
-              "prune": "the prune module, after vision"}
 
 
 # ----------------------------------------------------------------- runners
@@ -155,6 +151,59 @@ async def run_benchmark(config_path: str, input_path: str,
     return f"accuracy={acc:.4f} -> {output_path}"
 
 
+async def run_streams(args):
+    from ..io.video import probe_video
+    from ..pipeline.retriever_hybrid import HybridRetriever  # noqa: F401
+    from ..services.embed_client import make_embed_client
+    from ..services.llm_client import make_chat_client
+    from ..services.vlm_client import make_vlm_client
+    from ..streams import (LiveKGIngestor, RealtimeEngine, StreamSpec,
+                           simulate, video_frame_source)
+
+    config = PipelineConfig.from_yaml(args.config)
+    embed = make_embed_client(config.backend.embedder,
+                              dim=config.embedding_memory.dim,
+                              endpoint=config.embedder.endpoint,
+                              model=config.embedder.model,
+                              api_key=config.embedder.api_key,
+            checkpoint_path=config.embedder.checkpoint_path)
+    vlm = make_vlm_client(config.backend.vlm, config.vlm)
+    ingestor = None
+    if args.live_kg:
+        chat = make_chat_client(config.backend.llm,
+                                endpoint=config.llm_injector.endpoint,
+                                model=config.llm_injector.model_name,
+                                api_key=config.llm_injector.api_key,
+            checkpoint_path=config.llm_injector.checkpoint_path)
+        ingestor = LiveKGIngestor(config, chat, embed)
+
+    specs, sources, durations = [], {}, []
+    for i, path in enumerate(args.videos):
+        sid = f"stream{i}"
+        durations.append(probe_video(path).duration_seconds)
+        specs.append(StreamSpec(
+            sid, fps=args.fps,
+            chunk_size_seconds=config.video.chunk_size_seconds,
+            frames_per_chunk=config.video.frames_per_chunk))
+        sources[sid] = video_frame_source(path)
+    seconds = args.seconds if args.seconds > 0 else min(durations)
+    engine = RealtimeEngine(specs, embed_client=embed, vlm_client=vlm,
+                            kg_extractor=ingestor)
+    queries = []
+    for q in args.query:
+        t, idx, text = q.split(":", 2)
+        queries.append((float(t), f"stream{int(idx)}", text))
+    out = await simulate(engine, sources, video_seconds=seconds,
+                         queries=queries, realtime=args.realtime)
+    if ingestor is not None:
+        await ingestor.flush()
+        out["graphs"] = {sid: {"nodes": s.get_node_count(),
+                               "rels": s.get_relationship_count()}
+                         for sid, s in ingestor.stores.items()}
+        ingestor.close()
+    return out
+
+
 # --------------------------------------------------------------------- parser
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -260,12 +309,6 @@ def parse_true_chunks_args(parts: Optional[List[str]]
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command in NOT_PORTED:
-        print(f"vidgraph_tpu_torch: '{args.command}' is not yet ported "
-              f"(ROADMAP: {NOT_PORTED[args.command]}); the JAX package "
-              f"serves it: python -m vidgraph_tpu.cli.main {args.command}",
-              file=sys.stderr)
-        return 2
     if args.command in ("vlm", "graph"):
         result = asyncio.run(run_vlm_extraction(args.config, args.video,
                                                 args.output))
@@ -302,6 +345,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         result = asyncio.run(run_benchmark(args.config, args.input,
                                            args.output))
         print(f"Benchmark evaluation completed: {result}")
+    elif args.command == "prune":
+        from ..pipeline.prune import prune_export_file
+
+        result = prune_export_file(args.input, args.output, args.threshold)
+        print(f"Graph pruning completed: {result}")
+    elif args.command == "stream":
+        result = asyncio.run(run_streams(args))
+        print(f"Stream run completed: {json.dumps(result)}")
+    elif args.command == "serve":
+        from ..services.server import VideoMemoryServer
+
+        config = PipelineConfig.from_yaml(args.config)
+        server = VideoMemoryServer(config, host=args.host, port=args.port)
+        print(f"Serving video-memory API on {args.host}:{args.port}")
+        asyncio.run(server.serve_forever())
     else:
         parser.print_help()
         return 1

@@ -13,6 +13,10 @@ gives the same embedder.  What crosses is
   graph built by either is opened by the other as it is;
 * captioner (chat LM) parameters, with ``captioner_params_from_jax``, or
   as a checkpoint in the JAX npz format (``models/checkpoint.py``);
+* the trained encoders' parameters: the text embedder's (``{"enc": <captioner
+  tree>, "out_w"}``) with ``encoder_params_from_jax`` and the cross-encoder's
+  or the answer selector's (``{"enc", "score_w", "score_b"}``) with
+  ``reranker_params_from_jax``, or as their npz checkpoints;
 * the vision tower's Flax tree, with ``vit_params_from_jax``, or inside
   the VLM checkpoint ``{"vit": <flax tree>, "cap": <captioner tree>}``
   that ``services/vlm_client.py::TPUVLMClient`` reads;
@@ -73,6 +77,28 @@ def captioner_params_from_jax(tree: Any,
     if bf16:
         arr = arr.view(np.uint16)
     return from_numpy(arr, bf16).to(device or torch.device("cpu"))
+
+
+def encoder_params_from_jax(tree: Any,
+                            device: Optional[torch.device] = None) -> Dict:
+    """The port's ``TransformerTextEmbedder`` parameters from the JAX
+    package's ``init_encoder_params`` tree (numpy leaves): ``{"enc":
+    <captioner tree without head_w and vis_proj>, "out_w": [width, dim]}``,
+    bit for bit."""
+    if set(tree) != {"enc", "out_w"}:
+        raise ValueError(f"not an encoder tree: keys {sorted(tree)}")
+    return captioner_params_from_jax(tree, device)
+
+
+def reranker_params_from_jax(tree: Any,
+                             device: Optional[torch.device] = None) -> Dict:
+    """The port's cross-encoder (``CrossEncoderReranker``,
+    ``AnswerSelector``) parameters from the JAX package's
+    ``init_reranker_params`` tree (numpy leaves): ``{"enc", "score_w"
+    [width, 1], "score_b" [1]}``, bit for bit."""
+    if set(tree) != {"enc", "score_w", "score_b"}:
+        raise ValueError(f"not a reranker tree: keys {sorted(tree)}")
+    return captioner_params_from_jax(tree, device)
 
 
 def vit_params_from_jax(tree: Any, device: Optional[torch.device] = None

@@ -14,7 +14,7 @@ import contextlib
 import statistics
 import time
 from pathlib import Path
-from typing import Callable, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
@@ -70,6 +70,27 @@ def device_busy_us(events) -> float:
             busy += e - max(s, end)
             end = e
     return busy
+
+
+def profile_device(fn: Callable[[], object]) -> Dict[str, float]:
+    """One ``fn()`` under ``torch.profiler`` (CPU and CUDA activities),
+    synchronised: the device's busy milliseconds (``device_busy_us``),
+    the kernel launches the host made (runtime and driver API, cluster
+    launches included) and the device kernels that ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_busy_ms": device_busy_us(dev) / 1e3,
+            "launches": sum(1 for e in events if e.name.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel"))),
+            "device_kernels": sum(1 for e in dev if not e.name.startswith(
+                ("Memcpy", "Memset")))}
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 20,

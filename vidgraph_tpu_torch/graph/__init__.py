@@ -24,9 +24,8 @@ def open_graph_store(config, graph_uuid: str,
             != "local",
         )
     if gs.backend == "neo4j":
-        raise NotImplementedError(
-            "the Neo4j graph store is not ported to PyTorch yet; use "
-            "graph_store.backend: embedded")
+        from .neo4j_backend import Neo4jGraphStore
+        return Neo4jGraphStore(graph_uuid, config.neo4j)
     raise ValueError(f"unknown graph_store backend: {gs.backend}")
 
 

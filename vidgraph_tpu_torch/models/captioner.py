@@ -58,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_attention
 from .checkpoint import tree_leaves
 from .quant8 import is_q8, wdot
-from .tokenizer import BOS_ID, EOS_ID, VOCAB_SIZE
+from .tokenizer import BOS_ID, EOS_ID, PAD_ID, VOCAB_SIZE
 
 _DONE_CHECK = 16
 
@@ -240,15 +240,54 @@ def _qkv(bp, cfg: CaptionerConfig, x):
     return [z.reshape(b, t, h, d // h) for z in qkv.split(d, dim=-1)]
 
 
-def _block(bp, cfg: CaptionerConfig, x, flash: bool = False):
-    """Full-sequence block over x [B, T, d] with the causal + vision-prefix
-    mask, and the [B, T, h, hd] k and v it computed."""
+def _attn_masked(q, k, v, mask):
+    """Plain attention under an additive float32 ``mask`` of shape [T, T],
+    [B, 1, 1, T] or [B, 1, T, T] (0 where a key is seen, -1e30 where it
+    is not), as the JAX package's einsum path computes it: float32 scores
+    of the compute-dtype q and k over ``sqrt(hd)``, the mask added, a
+    float32 softmax cast to the compute dtype, P.V summed in float32.
+    q, k, v [B, T, h, hd]; returns [B, T, h, hd] float32."""
+    att = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    att = att + (mask if mask.dim() == 4 else mask[None, None])
+    att = torch.softmax(att, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", att.float(), v.float())
+
+
+def _block(bp, cfg: CaptionerConfig, x, flash: bool = False, mask=None):
+    """Full-sequence block over x [B, T, d], and the [B, T, h, hd] k and v
+    it computed.  Without ``mask`` the attention takes the causal +
+    vision-prefix pattern (``ops/flash_attention.py``: the CUDA kernel
+    when ``flash`` on the card); with an additive ``mask`` (the
+    bidirectional encoders' per-example padding mask, [B, 1, 1, T]) it is
+    the masked plain attention, whatever ``flash`` says."""
     b, t, d = x.shape
     q, k, v = (z.contiguous() for z in _qkv(bp, cfg, x))
-    o = flash_attention(q, k, v, cfg.num_vision_tokens, flash=flash)
+    if mask is not None:
+        o = _attn_masked(q, k, v, mask)
+    else:
+        o = flash_attention(q, k, v, cfg.num_vision_tokens, flash=flash)
     o = o.reshape(b, t, d).to(cfg.dtype)
     x = x + _linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg).float()
     return _mlp(bp, cfg, x), k, v
+
+
+def encode_pooled(enc: Dict, cfg: CaptionerConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder trunk of the text embedder and the
+    cross-encoder: tokens [B, T] (right-padded with PAD_ID) through the
+    blocks of ``enc`` under the per-example padding mask, the final layer
+    norm, and the mean over the non-pad positions: [B, width] float32."""
+    t = tokens.shape[1]
+    x = (enc["tok_emb"][tokens] + enc["pos_emb"][:t][None]).float()
+    pad = tokens == PAD_ID
+    mask = torch.zeros(pad.shape, dtype=torch.float32, device=x.device
+                       ).masked_fill_(pad, -1e30)[:, None, None, :]
+    for bp in enc["blocks"]:
+        x = _block(bp, cfg, x, mask=mask)[0]
+    x = _ln(x, enc["ln_f_scale"], enc["ln_f_bias"])
+    keep = (~pad).float()[..., None]
+    return (x * keep).sum(1) / keep.sum(1).clamp(min=1.0)
 
 
 def _embed_inputs(params, cfg: CaptionerConfig, vision_emb, tokens):

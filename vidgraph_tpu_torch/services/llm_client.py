@@ -17,10 +17,11 @@ Interchangeable backends (selected via ``backend.llm`` in the config):
   chat LM (``models/captioner.py``) on the port's device; quality tracks
   whatever weights are loaded.
 
-PyTorch port of ``vidgraph_tpu/services/llm_client.py``.  The trained
-answer selector is not ported yet: a configured selector checkpoint that
-exists raises, naming ROADMAP slice 6; a missing one is skipped with a
-warning, as in the JAX package.
+PyTorch port of ``vidgraph_tpu/services/llm_client.py``.  A configured
+answer-selector checkpoint (``answer_selector_path``) loads the trained
+selector (``models/answer_selector.py``) on the port's device and routes
+the benchmark's answer prompts through it in both local and on-device
+clients; a missing one is skipped with a warning, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -54,9 +55,8 @@ def _load_selector(path: str, mode: str):
             "untrained answer path (retrain: "
             "scripts/train_answer_selector.py)", path)
         return None
-    raise NotImplementedError(
-        "the trained answer selector is not ported to PyTorch yet "
-        "(ROADMAP slice 6)")
+    from ..models.answer_selector import AnswerSelector
+    return AnswerSelector(checkpoint_path=path, mode=mode)
 
 
 class ChatClient:

@@ -6,9 +6,9 @@ endpoint and treats failures as fatal when strict mode is on
 516-653).  Both behaviours are preserved; the default backend reranks with
 embedding cosine (one batched matmul).
 
-PyTorch port of ``vidgraph_tpu/services/rerank_client.py``: the cosine and
-HTTP clients; ``trained`` (the cross-encoder) raises until ROADMAP slice 6
-ports it.
+PyTorch port of ``vidgraph_tpu/services/rerank_client.py``, every client:
+cosine (``tpu``), the trained cross-encoder (``trained``,
+``models/reranker.py`` on the port's device) and HTTP.
 """
 from __future__ import annotations
 
@@ -42,6 +42,34 @@ class TPURerankClient(RerankClient):
         vecs = await self._embed.aembed([query] + list(documents))
         q, d = vecs[0], vecs[1:]
         scores = d @ q
+        order = np.argsort(-scores)[:top_k]
+        return [(int(i), float(scores[i])) for i in order]
+
+
+class TrainedRerankClient(RerankClient):
+    """Cross-encoder reranker on device (``backend.reranker: trained``):
+    query and document attend to each other inside one transformer, the
+    signal the reference bought from its external ``/rerank`` service
+    (reference: src/pipeline/retriever_hybrid.py:524-547) and that
+    embedding-cosine rerank cannot add.  Weights from
+    scripts/train_reranker.py via ``checkpoint_path``."""
+
+    def __init__(self, checkpoint_path: str = "", model=None,
+                 embed_client=None) -> None:
+        from ..models.reranker import CrossEncoderReranker
+        self._model = model or CrossEncoderReranker(
+            checkpoint_path=checkpoint_path, embed_client=embed_client)
+        if checkpoint_path:
+            logger.info("Loaded trained reranker from %s (cosine prior "
+                        "lambda=%.1f)", checkpoint_path,
+                        self._model.cosine_lambda)
+
+    async def rerank(self, query, documents, top_k):
+        if not documents:
+            return []
+        import asyncio
+        scores = await asyncio.to_thread(self._model.score, query,
+                                         list(documents))
         order = np.argsort(-scores)[:top_k]
         return [(int(i), float(scores[i])) for i in order]
 
@@ -89,9 +117,8 @@ def make_rerank_client(kind: str, embed_client=None, endpoint: str = "",
             raise ValueError("tpu reranker needs an embed client")
         return TPURerankClient(embed_client)
     if kind == "trained":
-        raise NotImplementedError(
-            "the trained cross-encoder reranker is not ported to PyTorch "
-            "yet (ROADMAP slice 6)")
+        return TrainedRerankClient(checkpoint_path=checkpoint_path,
+                                   embed_client=embed_client)
     if kind == "http":
         return HttpRerankClient(endpoint, model, api_key)
     if kind in ("none", "", None):

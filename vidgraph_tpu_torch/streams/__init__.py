@@ -1,6 +1,9 @@
-"""Serving-side scheduling of the port.  Only the continuous batcher is
-ported; the realtime engine and the live ingest of
-``vidgraph_tpu/streams/`` are ROADMAP slice 8."""
+"""Serving-side scheduling and the live multi-stream runtime of the port:
+the JAX package's exports (``streams/realtime.py``, ``streams/ingest.py``,
+verbatim copies) and the continuous batcher of the chat LM."""
+from .ingest import LiveKGIngestor, video_frame_source
+from .realtime import FrameRing, RealtimeEngine, StreamSpec, simulate
 from .scheduler import ContinuousBatcher
 
-__all__ = ["ContinuousBatcher"]
+__all__ = ["FrameRing", "RealtimeEngine", "StreamSpec", "simulate",
+           "LiveKGIngestor", "video_frame_source", "ContinuousBatcher"]

@@ -224,10 +224,42 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    after its 5 warm-ups, and how many of the first ``ENC_CPU_QUERIES``
    texts equal a CPU run's); the
    answer selector in ``blend`` and ``pure`` modes on four of those
-   contexts: answers equal to the CPU's.
+   contexts: answers equal to the CPU's;
+20. the encoder trainers through their ``main`` at the JAX scripts'
+   default widths on ``training_corpus``:
+   ``scripts/train_torch_reranker.py`` (``RerankerConfig()``, 8 groups x
+   12 documents a step), ``train_torch_answer_selector.py``
+   (``RerankerConfig(max_len=256)``, 8 lists x K 64) and
+   ``train_torch_text_embedder.py`` (256 x 4 layers, dim 512, bf16, 128
+   documents of 384 + 128 query views of 96), ``ENC_TRAIN_STEPS`` each:
+   the loss is finite and falls (the mean of the last quarter of the
+   steps below the first quarter's); the loss of a fixed batch from the
+   seed weights on the card equals the CPU's within ``TRAINER_LOSS_TOL``
+   (float32); the saved checkpoint serves through the port's
+   ``CrossEncoderReranker``, ``AnswerSelector`` and
+   ``make_embed_client("transformer", checkpoint_path=...)``.  Prints
+   each trainer's ms a step, peak memory, and one step's ms and device
+   busy share;
+21. the tooling: ``scripts/profile_torch_vit.py --attn`` at B = 160
+   (720p frames) between a reset and a read of kernels 2 and 5 (no plain
+   version serves), then both kernels held to their plain versions at
+   its shapes (its frames; the first block's qkv of the fused tower) and
+   timed; one epoch of ``scripts/run_torch_parameter_sweep.py`` from
+   ``config/high_recall_config.yaml`` on ``sweep_workload`` (215
+   synthetic lab captions of 8 sentences and 30 questions grounded in
+   them: the size of the reference's workload) through the CLI in
+   subprocesses (each stage as ``chip_smoke.py --cli``, which
+   writes its launch counts): the epoch succeeds and launches kernel 1
+   (dense in ``kg``, top-k a query in ``batch-retrieve``), no plain
+   version; then
+   ``scripts/run_torch_judge_agreement.py`` on that epoch's retrieval
+   results (its 30 questions) with the chat LM at
+   ``CaptionerConfig.chat()`` width from seed weights on the card: kernel 3a launches at least once a layer a
+   judged question, no plain version.
 
-``--phases 14,15,16,17,18,19`` runs only the named phases of 14-19 (with
-the build): a partial run prints no kernels record and no ``ok`` line.
+``--phases 14,15,16,17,18,19,20,21`` runs only the named phases of 14-21
+(with the build): a partial run prints no kernels record and no ``ok``
+line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
 run's time from before the build), the card's name and power
@@ -2903,8 +2935,468 @@ def phase_encoders(seed: int, card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 20
+# the first step's loss of each encoder trainer, on the card and on the
+# CPU from the same seed weights and batch (float32; TF32 off)
+TRAINER_LOSS_TOL = 1e-4
+# steps a trainer takes at full width on the card, and the loss must fall
+# over them: the mean of the last quarter below the first quarter's
+ENC_TRAIN_STEPS = {"reranker": 200, "answer_selector": 100,
+                   "text_embedder": 100}
+
+
+def falls(losses) -> bool:
+    q = max(1, len(losses) // 4)
+    return float(np.mean(losses[-q:])) < float(np.mean(losses[:q]))
+
+
+def card_vs_cpu_loss(loss_at) -> dict:
+    """``loss_at(device)`` (a float32 loss from seed weights and a fixed
+    batch, built on ``device``) on the card and on the CPU."""
+    card = loss_at(torch.device("cuda"))
+    cpu = loss_at(torch.device("cpu"))
+    assert math.isfinite(card) and abs(card - cpu) <= TRAINER_LOSS_TOL, \
+        f"first-step loss on the card {card}, on the CPU {cpu}"
+    return {"card": card, "cpu": cpu, "abs_diff": abs(card - cpu),
+            "tol": TRAINER_LOSS_TOL}
+
+
+def step_busy_share(params, loss_fn, **opt_kw) -> dict:
+    """One training step as the trainer takes it (its own AdamW;
+    ``loss_fn()`` builds the batch as the trainer's loop does and returns
+    the loss on the card): its unprofiled ms (median of 5, ending in a
+    synchronise) and the device's busy share of one profiled step over
+    that."""
+    from vidgraph_tpu_torch.models.train import AdamW
+
+    opt = AdamW(params, 1e-5, **opt_kw)
+
+    def step():
+        opt.zero_grad()
+        loss_fn().backward()
+        opt.update()
+        torch.cuda.synchronize()
+    ms = host_ms_of(step)
+    return {"step_ms": ms, "device_busy_share": busy_share(step, ms)}
+
+
+def trainer_record(name: str, rec: dict, wall: float, **extra) -> dict:
+    losses = rec["losses"]
+    assert all(np.isfinite(losses)), f"{name}: a loss is not finite"
+    assert falls(losses), f"{name}: the loss did not fall: {losses}"
+    q = max(1, len(losses) // 4)
+    return {"steps": len(losses), "wall_s": wall,
+            "first_quarter_loss": float(np.mean(losses[:q])),
+            "last_quarter_loss": float(np.mean(losses[-q:])),
+            "step_ms": rec["step_ms"],
+            "peak_memory_gb": rec["peak_memory_gb"], **extra}
+
+
+def phase_encoder_trainers(seed: int, card: str) -> dict:
+    """The three encoder trainers through their ``main`` at the JAX
+    scripts' default widths on ``training_corpus``: the loss falls, the
+    first step's loss equals the CPU's, the checkpoint serves through the
+    port's classes; ms a step, busy share, peak memory."""
+    from vidgraph_tpu_torch.models import instruct_data
+    from vidgraph_tpu_torch.models.answer_selector import AnswerSelector
+    from vidgraph_tpu_torch.models.captioner import trainable
+    from vidgraph_tpu_torch.models.reranker import (CrossEncoderReranker,
+                                                    RerankerConfig,
+                                                    batch_encode_pairs,
+                                                    init_reranker_params)
+    from vidgraph_tpu_torch.models.text_embedder import (init_encoder_params,
+                                                         needed_columns)
+    from vidgraph_tpu_torch.services.embed_client import make_embed_client
+
+    gpu = torch.device("cuda")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        corpus = str(training_corpus(tmp, seed))
+
+        # (a) the cross-encoder reranker, RerankerConfig(): 8 groups x 12
+        mod = load_script("train_torch_reranker")
+        out = tmp / "reranker.npz"
+        t0 = time.perf_counter()
+        rec = mod.main(["--corpus", corpus, "--steps",
+                        str(ENC_TRAIN_STEPS["reranker"]),
+                        "--synth-groups", "400",
+                        "--heldout", "24", "--seed", str(seed),
+                        "--out", str(out)])
+        wall = time.perf_counter() - t0
+        cfg = RerankerConfig()
+        hash_embed = make_embed_client("tpu", dim=512)
+        # a batch as the trainer draws them: most hold a corpus group of
+        # long chunks (T up to 512) beside short synthetic ones
+        chunks = list(dict.fromkeys(
+            r["content"] for r in json.loads(Path(corpus).read_text())
+            ["results"] if r.get("content")))
+        groups = (mod.build_groups(chunks, random.Random(seed))[:4]
+                  + mod.synthetic_groups(random.Random(seed), 4))
+        toks = np.stack([batch_encode_pairs(q, d, cfg) for q, d, _ in groups])
+        toks = toks[..., :int(needed_columns(toks).max())]
+        pos = np.array([p for _, _, p in groups], np.int64)
+        sims = mod.cosine_prior(groups, hash_embed)
+
+        def rr_batch(dev):
+            return [torch.as_tensor(a, device=dev) for a in (toks, pos, sims)]
+
+        def rr_loss(dev):
+            with torch.no_grad():
+                return mod.reranker_loss(init_reranker_params(cfg, seed, dev),
+                                         cfg, *rr_batch(dev), 8.0,
+                                         0.02).item()
+        params = trainable(init_reranker_params(cfg, seed, gpu))
+        busy = step_busy_share(params, lambda: mod.reranker_loss(
+            params, cfg, *rr_batch(gpu), 8.0, 0.02), weight_decay=0.01,
+            max_norm=1.0)
+        served = CrossEncoderReranker(checkpoint_path=str(out),
+                                      embed_client=hash_embed)
+        scores = served.score(groups[0][0], groups[0][1])
+        assert served.cosine_lambda == 8.0 and scores.shape == (12,) and \
+            np.isfinite(scores).all(), scores
+        res["reranker"] = trainer_record(
+            "reranker", rec, wall, first_step_loss=card_vs_cpu_loss(rr_loss),
+            one_step=busy, heldout=rec["heldout"],
+            groups=rec["groups"],
+            shape="RerankerConfig() (256 x 4 layers, 4 heads, max_len "
+                  "512), 8 groups x 12 documents a step, its default lr")
+        del params, served
+
+        # (b) the answer selector, RerankerConfig(max_len=256): 8 x K 64
+        mod = load_script("train_torch_answer_selector")
+        out = tmp / "answer_selector.npz"
+        t0 = time.perf_counter()
+        rec = mod.main(["--corpus", corpus, "--steps",
+                        str(ENC_TRAIN_STEPS["answer_selector"]),
+                        "--n-synth", "300", "--n-questions", "40",
+                        "--eval-count", "24", "--seed", str(seed),
+                        "--out", str(out)])
+        wall = time.perf_counter() - t0
+        cfg = RerankerConfig(max_len=256)
+        rng = random.Random(seed)
+        sents = [instruct_data.synth_sentence(rng) for _ in range(60)]
+        pairs = instruct_data.synthetic_answer_pairs(sents, rng, 16)
+        examples = mod.build_examples(pairs, cfg, 64, rng)[:8]
+        arrays = [np.stack([e[i] for e in examples]) for i in range(3)]
+        arrays[0] = arrays[0][..., :int(needed_columns(arrays[0]).max())
+                              ].astype(np.int16)
+
+        def sel_batch(dev):
+            return [torch.as_tensor(a, device=dev) for a in arrays]
+
+        def sel_loss(dev):
+            with torch.no_grad():
+                return mod.selector_loss(init_reranker_params(cfg, seed, dev),
+                                         cfg, *sel_batch(dev), 1.0).item()
+        params = trainable(init_reranker_params(cfg, seed, gpu))
+        busy = step_busy_share(params, lambda: mod.selector_loss(
+            params, cfg, *sel_batch(gpu), 1.0), weight_decay=0.01,
+            max_norm=1.0)
+        served = AnswerSelector(checkpoint_path=str(out))
+        answer = served.answer(pairs[0][0], pairs[0][1])
+        assert served.cfg.max_len == 256 and isinstance(answer, str) and \
+            answer, answer
+        res["answer_selector"] = trainer_record(
+            "answer_selector", rec, wall,
+            first_step_loss=card_vs_cpu_loss(sel_loss),
+            one_step=busy, held_losses=rec["held_losses"],
+            eval=rec["eval"], train_examples=rec["train_examples"],
+            shape="RerankerConfig(max_len=256) (256 x 4 layers, 4 heads), "
+                  "8 lists x K 64 candidates a step")
+        del params, served
+
+        # (c) the text embedder: 256 x 4 layers, dim 512, bf16 compute,
+        # 128 documents (384) + 128 query views (96) a step
+        mod = load_script("train_torch_text_embedder")
+        out = tmp / "text_embedder.npz"
+        t0 = time.perf_counter()
+        rec = mod.main(["--corpus", corpus, "--steps",
+                        str(ENC_TRAIN_STEPS["text_embedder"]), "--seed",
+                        str(seed), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        docs = mod.load_sentences(corpus)
+        docs = [docs[i % len(docs)] for i in range(128)]
+        queries = [mod.augment(s, np.random.default_rng(seed)) for s in docs]
+        teacher = mod.HashedNGramEmbedder(dim=512)
+
+        def te_batch(dev):
+            # the trainer's host work a step: tokens and the teacher
+            t_emb = teacher.embed(docs)
+            return (mod.tokens(queries, 96, dev), mod.tokens(docs, 384, dev),
+                    torch.as_tensor(t_emb @ t_emb.T, device=dev))
+
+        def te_loss(dev, dtype=torch.float32):
+            cfg = mod.encoder_config(256, 4, 4, 384, dtype)
+            with torch.no_grad():
+                return mod.embedder_loss(
+                    init_encoder_params(cfg, 512, seed, dev), cfg,
+                    *te_batch(dev), 0.05, 4.0)[0].item()
+        cfg = mod.encoder_config(256, 4, 4, 384)
+        params = trainable(init_encoder_params(cfg, 512, seed, gpu))
+        busy = step_busy_share(params, lambda: mod.embedder_loss(
+            params, cfg, *te_batch(gpu), 0.05, 4.0)[0], weight_decay=1e-4)
+        client = make_embed_client("transformer", checkpoint_path=str(out))
+        vecs = client.embed(docs[:5])
+        assert vecs.shape == (5, 512) and np.allclose(
+            np.linalg.norm(vecs, axis=1), 1.0, atol=1e-3), vecs.shape
+        res["text_embedder"] = trainer_record(
+            "text_embedder", rec, wall,
+            first_step_loss=card_vs_cpu_loss(te_loss),
+            one_step=busy, recalls=rec["recalls"],
+            hash_recall_at_1=rec["hash_recall_at_1"],
+            shape="256 x 4 layers, 4 heads, dim 512, bf16 compute, 128 "
+                  "documents (max_len 384) + 128 query views (96) a step")
+        del params, client
+        torch.cuda.empty_cache()
+    log(f"phase 20: the encoder trainers at the JAX defaults' widths on "
+        f"{card}: {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 21
+# the sweep's workload at the reference's size (docs/EVAL.md: 215 chunks
+# of 5 s, 72 kg batches of 3, a 30-question groundtruth set): synthetic
+# lab captions of this many sentences, questions grounded in one of them
+SWEEP_CHUNKS, SWEEP_SENTENCES, SWEEP_QUESTIONS = 215, 8, 30
+
+
+def sweep_workload(tmp: Path, seed: int) -> tuple:
+    """A vlm output of ``SWEEP_CHUNKS`` captions and ``SWEEP_QUESTIONS``
+    distinct questions, each with the sentence it asks about as its
+    groundtruth."""
+    from vidgraph_tpu_torch.models import instruct_data
+
+    rng = random.Random(seed)
+    results, questions = [], []
+    for i in range(SWEEP_CHUNKS):
+        t = i * 5
+        results.append({
+            "time": f"{t // 60:02d}:{t % 60:02d}-{(t + 5) // 60:02d}:"
+                    f"{(t + 5) % 60:02d}", "chunk_idx": i,
+            "content": " ".join(instruct_data.synth_sentence(rng)
+                                for _ in range(SWEEP_SENTENCES))})
+    seen = set()      # the judge agreement keys its records by question
+    for r in rng.sample(results, len(results)):
+        sent = rng.choice(instruct_data.sentences_of([r["content"]]))
+        query = instruct_data.synth_questions([sent], rng, 1)[0]
+        if query not in seen and len(seen) < SWEEP_QUESTIONS:
+            seen.add(query)
+            questions.append({"query": query, "groundtruth": sent})
+    assert len(questions) == SWEEP_QUESTIONS, len(questions)
+    vlm, queries = tmp / "sweep_vlm_output.json", tmp / "sweep_queries.json"
+    vlm.write_text(json.dumps({"results": results}))
+    queries.write_text(json.dumps(questions))
+    return vlm, queries
+
+
+def counted_cli(self, *cli_args: str, timeout: float):
+    """``EpochRunner._cli`` of ``scripts/run_torch_parameter_sweep.py``
+    with each stage run as ``chip_smoke.py --cli COUNTS.json``: the same
+    CLI ``main``, which writes its kernel launches at exit."""
+    counts = self.out_dir / f"counts_{len(list(self.out_dir.glob('counts_*')))}.json"
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--cli", str(counts),
+           *cli_args]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else []))}
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout, cwd=str(self.out_dir), env=env)
+        return proc.returncode, proc.stdout + proc.stderr
+    except subprocess.TimeoutExpired:
+        return -1, "TIMEOUT"
+
+
+def vit_b160_kernels(seed: int) -> dict:
+    """Kernels 2 and 5 at ``profile_torch_vit.py``'s B = 160 shapes
+    against their plain versions: its 720p frames (the same seed) ->
+    224, and the first block's attention of the fused tower on them
+    (strided views of one qkv product, as ``models/vit.py`` passes
+    them); device times per call from a CUDA graph."""
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+    from vidgraph_tpu_torch.models.vit import ViTConfig, init_vision_tower
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    b, h, w = 160, 720, 1280
+    x = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 256, size=(b, h, w, 3), dtype=np.uint8), device="cuda")
+    got = pre.preprocess_frames(x, 224, True)
+    torch.cuda.synchronize()
+    ref = pre.preprocess_ref(x, 224, True)
+    err = float((got.float() - ref.float()).abs().max())
+    assert got.dtype == ref.dtype and err <= pre.TOL_FAST, \
+        f"preprocess 160 x 720 x 1280: max |err| {err} > {pre.TOL_FAST}"
+    rows = {"preprocess": {
+        "max_abs_err": err, "tol": pre.TOL_FAST,
+        "kernel_ms": graph_ms(lambda: pre.preprocess_frames(x, 224, True)),
+        "plain_ms": graph_ms(lambda: pre.preprocess_ref(x, 224, True)),
+        "library_ms": graph_ms(lambda: library_resize(x, 224)),
+        **bound(x.numel() + got.numel() * 2, 0.0, F32_FLOPS),
+        "timed": "160 frames 720x1280 uint8 -> 224 bf16 (fast)"}}
+    del ref
+    cfg = dataclasses.replace(ViTConfig.b32(), attn_impl="fused")
+    tower = init_vision_tower(cfg, torch.Generator().manual_seed(seed),
+                              device="cuda").eval()
+    seen = {}
+    hook = tower.block_0.attn.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0]))
+    with torch.no_grad():
+        tower(got)
+    hook.remove()
+    heads, hd = cfg.heads, cfg.width // cfg.heads
+    with torch.no_grad():
+        qkv = tower.block_0.attn.qkv(seen["x"])
+    n = qkv.shape[1]
+    q, k, v = (z.reshape(b, n, heads, hd).transpose(1, 2)
+               for z in qkv.split(cfg.width, dim=-1))
+    out = sa.fused_short_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = sa.short_attention_ref(q, k, v).float()
+    aerr = (out.float() - ref).abs()
+    excess = float((aerr - sa.TOL_ABS - sa.TOL_REL * ref.abs()).max())
+    assert bool(torch.isfinite(out).all()) and excess <= 0, \
+        f"short attention at B 160: max |err| {float(aerr.max())}"
+    rows["short_attention"] = {
+        "max_abs_err": float(aerr.max()),
+        "kernel_ms": graph_ms(lambda: sa.fused_short_attention(q, k, v)),
+        "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
+        "library_ms": graph_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v)),
+        **bound(4 * b * heads * n * hd * 2, 4.0 * b * heads * n * n * hd,
+                BF16_FLOPS),
+        "timed": f"B=160 x {heads} heads, N={n}, hd={hd}, bf16, the first "
+                 "block's qkv views"}
+    del x, got, tower, qkv, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tooling(seed: int, card: str) -> dict:
+    """The tooling on the card: ``profile_torch_vit.py`` at B = 160 (with
+    its attention rows) between a reset and a read of kernels 2 and 5,
+    which are then held to their plain versions at its shapes; one sweep
+    epoch (``run_torch_parameter_sweep.py``) through the CLI on a
+    workload of the reference's size (``sweep_workload``), which launches
+    kernel 1; the judge agreement
+    (``run_torch_judge_agreement.py``) on that epoch's retrieval results
+    with the chat LM on the card from seed weights, which launches kernel
+    3a."""
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     init_params)
+    from vidgraph_tpu_torch.models.checkpoint import save_params
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    res = {}
+    # (a) the ViT roofline at B = 160
+    mod = load_script("profile_torch_vit")
+    pre.reset_counts()
+    sa.reset_counts()
+    t0 = time.perf_counter()
+    prof = mod.main(["--attn", "--seed", str(seed)])
+    torch.cuda.synchronize()
+    counts = {"preprocess": pre.LAUNCHES["preprocess"],
+              "preprocess_plain": pre.REF_CALLS,
+              "short_attention": sa.LAUNCHES["short_attention"],
+              "short_attention_plain": sa.REF_CALLS}
+    # the fused impl's row: a warm-up, 10 timed calls and one more for
+    # the drift, 12 layers each
+    assert counts["short_attention"] == 12 * 12, counts
+    assert counts["preprocess"] >= 12 * 4 + 11 and \
+        counts["preprocess_plain"] == counts["short_attention_plain"] == 0, \
+        counts
+    drift = {r["impl"]: r["max_abs_drift_vs_einsum"]
+             for r in prof["attn_impls"]}
+    assert drift["fused"] < 2e-2, drift
+    res["vit_b160"] = {"wall_s": time.perf_counter() - t0,
+                       "launches": counts, "profile": prof,
+                       "kernels": vit_b160_kernels(seed)}
+
+    # (b) one sweep epoch through the CLI on the card
+    sweep = load_script("run_torch_parameter_sweep")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "block").mkdir()
+        (tmp / "block" / "tiktoken.py").write_text(_TIKTOKEN_BLOCK)
+        vlm_output, queries = sweep_workload(tmp, seed)
+        real_cli = sweep.EpochRunner._cli
+        sweep.EpochRunner._cli = counted_cli
+        old_path = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [str(tmp / "block")] + ([old_path] if old_path else []))
+        t0 = time.perf_counter()
+        try:
+            # the recall profile: its retrieval searches the chunks'
+            # vectors (the shipped base config's entity-first retrieval
+            # does not), and its kg scores them densely
+            sweep.main(["--base-config",
+                        str(ROOT / "config/high_recall_config.yaml"),
+                        "--vlm-output", str(vlm_output), "--queries", str(queries), "--output-dir",
+                        str(tmp / "sweep"), "--epochs", "1", "--seed",
+                        str(seed)])
+        finally:
+            sweep.EpochRunner._cli = real_cli
+            if old_path is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = old_path
+        wall = time.perf_counter() - t0
+        summary = json.loads((tmp / "sweep" / "sweep_summary.json")
+                             .read_text())
+        epoch = summary["epochs"][0]
+        assert epoch["status"] == "ok" and epoch["accuracy"] is not None, \
+            {k: v for k, v in epoch.items() if k != "benchmark_stats"}
+        stage_counts = [json.loads(p.read_text()) for p in
+                        sorted((tmp / "sweep").glob("counts_*.json"))]
+        assert len(stage_counts) == 3 and all(c["rc"] == 0
+                                              for c in stage_counts)
+        topk = {key: sum(c["topk"][key] for c in stage_counts)
+                for key in stage_counts[0]["topk"]}
+        assert topk["score_topk"] >= SWEEP_QUESTIONS and \
+            topk["merge"] >= SWEEP_QUESTIONS and \
+            topk["score_dense"] >= 1 and topk["plain"] == 0, topk
+        batches = json.loads((tmp / "sweep" / "epoch_000_batch_metrics.json")
+                             .read_text())
+        res["sweep_epoch"] = {
+            "chunks": SWEEP_CHUNKS, "questions": SWEEP_QUESTIONS,
+            "kg_batches": len(batches),
+            "wall_s": wall, "epoch_s": epoch["elapsed_s"],
+            "stage_s": [c["seconds"] for c in stage_counts],
+            "accuracy": epoch["accuracy"], "params": epoch["params"],
+            "avg_retrieval_time": epoch["avg_retrieval_time"],
+            "topk_launches": topk}
+
+        # (c) the judge agreement on that epoch's retrieval results
+        cfg = CaptionerConfig.chat()
+        ckpt = tmp / "instruct_lm.npz"
+        save_params(init_params(cfg, torch.Generator().manual_seed(seed)),
+                    str(ckpt))
+        judge_cfg = chat_config(tmp, "judge_tpu_config.yaml", ckpt)
+        agree = load_script("run_torch_judge_agreement")
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        summary = agree.main([
+            "--input", str(tmp / "sweep" / "epoch_000_retrieval.json"),
+            "--config", str(judge_cfg), "--outdir", str(tmp / "judge")])
+        torch.cuda.synchronize()
+        flash, plain = fa.LAUNCHES["flash_fwd"], fa.REF_CALLS
+        assert summary["n"] == SWEEP_QUESTIONS and \
+            json.loads((tmp / "judge" / "judge_agreement.json")
+                       .read_text()) == summary, summary
+        assert flash >= cfg.layers * summary["n"] and plain == 0, \
+            (flash, plain)
+        res["judge_agreement"] = {
+            "wall_s": time.perf_counter() - t0, "flash_launches": flash,
+            **{k: v for k, v in summary.items() if k != "flips"}}
+    log(f"phase 21: the tooling on {card}: {json.dumps(res)}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
-                  quant, bwd, training, streams) -> dict:
+                  quant, bwd, training, streams, tooling) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -2920,6 +3412,8 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     vision_counts = [vision["counts"][m] for m in ("einsum", "fused")]
     vision_counts.append(streams["counts"])
     sk = streams["kernels"]
+    vit160, sweep = tooling["vit_b160"], tooling["sweep_epoch"]
+    judge = tooling["judge_agreement"]
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
@@ -2937,7 +3431,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     return {"kernels": [
         {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
          "source": src, "replaces": replaces,
-         "launches": launches["score_topk"],
+         "launches": (launches["score_topk"]
+                      + sweep["topk_launches"]["score_topk"]),
+         "sweep_epoch_launches": sweep["topk_launches"]["score_topk"],
          "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
          "ms": stages["score_topk_b16_k5"]["kernel_ms"],
          "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
@@ -2953,7 +3449,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   "topk_device_ms: cosine_topk (tile pass + merge) from "
                   "CUDA-graph replay"},
         {"name": "cosine_topk_merge", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": launches["merge"],
+         "replaces": replaces,
+         "launches": launches["merge"] + sweep["topk_launches"]["merge"],
+         "sweep_epoch_launches": sweep["topk_launches"]["merge"],
          "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
          "ms": stages["merge_b16_k5"]["kernel_ms"],
          "plain_ms": stages["merge_b16_k5"]["plain_ms"],
@@ -2973,7 +3471,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "replaces": "vidgraph_tpu/models/captioner.py:165",
          "launches": (chat["kg"]["flash"] + chat["benchmark"]["flash"]
                       + sum(c["flash"] for c in vision_counts)
-                      + inst["flash_fwd"] + mid["flash_fwd"]),
+                      + inst["flash_fwd"] + mid["flash_fwd"]
+                      + judge["flash_launches"]),
+         "judge_agreement_launches": judge["flash_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
          "lse_max_abs_err": max(r["lse_err"] for r in bwd_rows.values()),
          "train_ms": brow["fwd_lse_ms"],
@@ -2999,7 +3499,11 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "b160_bound_ms": pre["b160_405x720_fast"]["bound_ms"],
          "stream_240x320": {"launches": streams["counts"]["preprocess"],
                             **sk["preprocess"]},
-         "launches": sum(c["preprocess"] for c in vision_counts),
+         "vit_b160_720p": {
+             "launches": vit160["launches"]["preprocess"],
+             **vit160["kernels"]["preprocess"]},
+         "launches": (sum(c["preprocess"] for c in vision_counts)
+                      + vit160["launches"]["preprocess"]),
          "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
          "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
          "library_ms": pre5["library_ms"], "call_ms": pre5["call_ms"],
@@ -3008,7 +3512,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "short_attention", "route": "cuda",
          "source": "vidgraph_tpu_torch/csrc/short_attention.cu",
          "replaces": "vidgraph_tpu/ops/short_attention.py:83",
-         "launches": vision["counts"]["fused"]["short_attention"],
+         "launches": (vision["counts"]["fused"]["short_attention"]
+                      + vit160["launches"]["short_attention"]),
+         "vit_b160": {"launches": vit160["launches"]["short_attention"],
+                      **vit160["kernels"]["short_attention"]},
          "max_abs_err": max(r["max_abs_err"] for r in short.values()),
          "ms": short5["kernel_ms"], "plain_ms": short5["plain_ms"],
          "library_ms": short5["library_ms"],
@@ -3080,7 +3587,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-19 "
+                    help="development: run only these of phases 14-21 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3115,9 +3622,11 @@ def main() -> int:
             16: lambda: phase_acs(card),
             17: lambda: phase_streams(tc, args.seed, card),
             18: lambda: phase_serve(tc, args.seed, card),
-            19: lambda: phase_encoders(args.seed, card)}
+            19: lambda: phase_encoders(args.seed, card),
+            20: lambda: phase_encoder_trainers(args.seed, card),
+            21: lambda: phase_tooling(args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 19")
+        ap.error("--phases takes 14 to 21")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -3148,9 +3657,12 @@ def main() -> int:
     serve = late[18]()
     encoders = late[19]()
     log(f"phases 1-19 done at {time.perf_counter() - t0:.1f} s")
+    trainers = late[20]()
+    tooling = late[21]()
+    log(f"phases 1-21 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
-                           q8k, quant, bwd, training, streams)
+                           q8k, quant, bwd, training, streams, tooling)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -3160,6 +3672,10 @@ def main() -> int:
         "vision": vision, "q8_matmul_ms": q8k, "quantized": quant,
         "flash_backward": bwd, "training": training, "acs": acs,
         "streams": streams, "serve": serve, "encoders": encoders,
+        "encoder_trainers": trainers,
+        "tooling": {k: v for k, v in tooling.items() if k != "vit_b160"},
+        "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
+                     if k != "profile"},
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

@@ -133,13 +133,21 @@ class HashedNGramEmbedder:
         return self.embed([text])[0]
 
 
+def needed_columns(toks: np.ndarray) -> np.ndarray:
+    """For right-padded token rows ``toks`` [N, ..., T]: the columns each
+    of the N leading entries needs, one past its last non-pad byte (at
+    least 1).  Exact for the bidirectional encoders: a pad key's weight is
+    exp(-1e30) = 0 and pad positions are left out of the pooled mean, so a
+    real row's scores are the same with or without the columns past it."""
+    real = (toks != tokenizer.PAD_ID).any(axis=tuple(range(1, toks.ndim - 1)))
+    last = real.shape[-1] - np.argmax(real[:, ::-1], axis=-1)
+    return np.where(real.any(-1), last, 1).astype(np.int64)
+
+
 def trim_padding(toks: np.ndarray) -> np.ndarray:
     """Right-padded host tokens [B, T] without their trailing columns of
-    PAD_ID only.  Exact for the bidirectional encoders: a pad key's
-    weight is exp(-1e30) = 0, so a real row's softmax sums and pooled
-    mean are the same with or without those columns."""
-    real = (toks != tokenizer.PAD_ID).any(0).nonzero()[0]
-    return toks[:, :real[-1] + 1 if len(real) else 1]
+    PAD_ID only (``needed_columns``)."""
+    return toks[:, :needed_columns(toks).max(initial=1)]
 
 
 def encoder_forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:

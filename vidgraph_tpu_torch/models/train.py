@@ -18,17 +18,23 @@ update ``p - lr * wd * p - lr * m_hat / (sqrt(v_hat) + eps)``.  The
 parameters are float32 leaves updated in place, where JAX returns new
 trees; ``step`` returns the state itself.
 
-``warmup_cosine_decay_schedule``, ``clip_by_global_norm`` and ``AdamW`` (the
+``warmup_cosine_decay_schedule``, ``cosine_decay_schedule``,
+``clip_by_global_norm`` and ``AdamW`` (the
 ``optax.chain(clip_by_global_norm(1.0), adamw(schedule, weight_decay))`` of
 the trainer scripts over a parameter tree, with its state saved and loaded
-as numpy arrays) are the port's plain functions for what
-``scripts/train_instruct_lm.py`` and ``scripts/train_midscale.py`` build
-from optax.
+as numpy arrays; without ``max_norm`` it is the unclipped ``optax.adamw``)
+are the port's plain functions for what the JAX trainer scripts
+(``scripts/train_{instruct_lm,midscale,reranker,answer_selector,
+text_embedder}.py``) build from optax.  optax's
+``softmax_cross_entropy_with_integer_labels(...).mean()`` is
+``F.cross_entropy`` in float32.  ``StepClock`` times the steps of a
+training loop on the host clock.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -86,6 +92,21 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
         frac = min(step - warmup_steps, cosine_steps) / cosine_steps
         cosine = 0.5 * (1.0 + math.cos(math.pi * frac))
         return end_value + (peak_value - end_value) * cosine
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``init_value * ((1 - alpha) *
+    0.5 * (1 + cos(pi * min(step, decay_steps) / decay_steps)) + alpha)``.
+    Returns ``step -> learning rate``."""
+    if not decay_steps > 0:
+        raise ValueError("decay_steps must be positive")
+
+    def schedule(step: int) -> float:
+        frac = min(step, decay_steps) / decay_steps
+        cosine = 0.5 * (1.0 + math.cos(math.pi * frac))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
     return schedule
 
 
@@ -167,6 +188,35 @@ class AdamW:
                 "exp_avg": tree["exp_avg"][k].to(p.device, p.dtype).clone(),
                 "exp_avg_sq": tree["exp_avg_sq"][k].to(p.device,
                                                        p.dtype).clone()}
+
+
+class StepClock:
+    """Milliseconds a training step on the host clock: ``start`` before
+    the first timed step and after work that is not a step (a held-out
+    evaluation), ``stop`` before such work and after the last step; the
+    device's queue is drained at each of them, so queued steps are charged
+    to the steps and not to the evaluation."""
+
+    def __init__(self, device: Any) -> None:
+        self.cuda = torch.device(device).type == "cuda"
+        self.seconds = 0.0
+        self._t: Optional[float] = None
+
+    def _now(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def start(self) -> None:
+        self._t = self._now()
+
+    def stop(self) -> None:
+        if self._t is not None:
+            self.seconds += self._now() - self._t
+            self._t = None
+
+    def ms_per_step(self, steps: int) -> float:
+        return self.seconds * 1e3 / max(1, steps)
 
 
 def require_single_device(mesh: Any) -> None:

@@ -255,11 +255,32 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    ``scripts/run_torch_judge_agreement.py`` on that epoch's retrieval
    results (its 30 questions) with the chat LM at
    ``CaptionerConfig.chat()`` width from seed weights on the card: kernel 3a launches at least once a layer a
-   judged question, no plain version.
+   judged question, no plain version.  Between the sweep and the judge,
+   ``scripts/repro_torch_best_config.sh`` reruns the epoch's config on the
+   same workload: its ``REPRO RESULT`` statistics must equal the epoch's;
+22. the multi-device layer (``parallel/``) on the one card.  (1) NCCL at
+   a world of one, ``mesh.enabled: true``, each check between a reset and
+   a read of the launch counts, no plain version serving: the
+   ``ShardedEmbeddingStore`` on phase 2's 200,000 x 512 store (top-5 at B
+   1 and 16, ids equal to ``EmbeddingStore``'s, kernel 1 launched), bench's
+   hybrid retrieval through the mesh (texts equal to one card's), one
+   ``TPUChatClient`` dispatch at ``chat()`` width of 64 new bytes (texts
+   equal to one card's, the flash kernel once a layer), and one
+   ``TrainState`` step at ViT-B/32 + ``base()`` over the mesh (loss within
+   1e-5 of the one-device state's).  (2) Four gloo ranks, each computing
+   on ``cuda:0`` (``parallel/launch.py``; the kernels are built before
+   they start): the store split 4 ways (ids equal to one card's, kernel 1
+   launched on every rank), the chat decode at ``chat()`` width over
+   ``model_axis=2``, 16 new bytes (texts equal to one card's, the flash
+   kernel once a layer on every rank), ``base()`` blocks over 2 pipeline
+   stages at B 8 x T 128 (within ``PIPE_TOL`` of the sequential stack) and
+   the MoE at the dry-run's sizes (within 1e-5).  Prints the world-1
+   sharded search's ms beside the one-card store's, and the gloo ranks'
+   times as one card's, not a multi-card number.
 
-``--phases 14,15,16,17,18,19,20,21`` runs only the named phases of 14-21
-(with the build): a partial run prints no kernels record and no ``ok``
-line.
+``--phases 14,15,16,17,18,19,20,21,22`` runs only the named phases of
+14-22 (with the build): a partial run prints no kernels record and no
+``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
 run's time from before the build), the card's name and power
@@ -350,6 +371,10 @@ MIDSCALE_LOSS_TOL = 0.01
 ACS_OTHER_TOL = 1e-3
 # H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+MESH_RANKS = 4
+# phase 22: base() blocks through 2 pipeline stages against the sequential
+# stack, bf16 compute (the same products in the same order on one card)
+PIPE_TOL = 2e-3
 _TIKTOKEN_BLOCK = ('raise ImportError("tiktoken is kept out of this run: its '
                    'encoder would be fetched over the network")\n')
 
@@ -3369,6 +3394,27 @@ def phase_tooling(seed: int, card: str) -> dict:
             "avg_retrieval_time": epoch["avg_retrieval_time"],
             "topk_launches": topk}
 
+        # (b2) the repro script on that epoch's config: the same statistics
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", str(ROOT / "scripts" / "repro_torch_best_config.sh"),
+             str(tmp / "repro"), epoch["config_path"], str(vlm_output),
+             str(queries)], capture_output=True, text=True, timeout=900,
+            env={**os.environ, "VIDGRAPH_TORCH_DEVICE": "cuda",
+                 "PYTHONPATH": os.pathsep.join(
+                     [str(tmp / "block")] + ([os.environ["PYTHONPATH"]]
+                                             if os.environ.get("PYTHONPATH")
+                                             else []))})
+        assert proc.returncode == 0, (proc.stdout[-2000:]
+                                      + proc.stderr[-2000:])
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("REPRO RESULT:")][-1]
+        repro = json.loads(line.split(":", 1)[1])
+        assert repro == epoch["benchmark_stats"], \
+            (repro, epoch["benchmark_stats"])
+        res["repro"] = {"wall_s": time.perf_counter() - t0,
+                        "statistics": repro}
+
         # (c) the judge agreement on that epoch's retrieval results
         cfg = CaptionerConfig.chat()
         ckpt = tmp / "instruct_lm.npz"
@@ -3395,8 +3441,290 @@ def phase_tooling(seed: int, card: str) -> dict:
     return res
 
 
+def mesh_store_rows(seed: int) -> tuple:
+    """Phase 2's 200,000 x 512 store (the same draw) and 16 queries."""
+    rng = np.random.default_rng(seed)
+    host = rng.normal(size=(STORE_ROWS, DIM)).astype(np.float32)
+    queries = rng.normal(size=(16, DIM)).astype(np.float32)
+    return host, queries
+
+
+def filled_store(store, host: np.ndarray):
+    step = 50_000
+    for i in range(0, len(host), step):
+        store.add([f"c{j}" for j in range(i, i + step)], host[i:i + step])
+    return store
+
+
+def hit_ids(hits) -> list:
+    return [[rid for rid, _ in row] for row in hits]
+
+
+def search_ms(store, q: np.ndarray, reps: int = 20) -> float:
+    """Host-clock median of a top-5 search whose results end on the
+    host."""
+    store.search(q, k=5)
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        store.search(q, k=5)
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_rank(seed: int) -> dict:
+    """One rank of phase 22's gloo world (4 ranks on ``cuda:0``): the
+    200,000 x 512 store split 4 ways, the chat decode at ``chat()`` width
+    over ``model_axis=2``, ``base()`` blocks over 2 pipeline stages, the
+    MoE at the dry-run's sizes.  Rank 0 also runs the one-card
+    references."""
+    import torch.distributed as dist
+
+    from vidgraph_tpu_torch.memory.embedding_store import EmbeddingStore
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig, _block,
+                                                     init_params)
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import topk_cosine as tc
+    from vidgraph_tpu_torch.parallel import mesh as pm
+    from vidgraph_tpu_torch.parallel import serving
+    from vidgraph_tpu_torch.parallel.dryrun import RAGGED_PROMPTS
+    from vidgraph_tpu_torch.parallel.moe import (init_moe_params, moe_ffn,
+                                                 place_experts)
+    from vidgraph_tpu_torch.parallel.pipeline import (captioner_block_fn,
+                                                      pipeline_forward,
+                                                      stack_block_params)
+    from vidgraph_tpu_torch.parallel.sharded_search import \
+        ShardedEmbeddingStore
+    from vidgraph_tpu_torch.services.llm_client import TPUChatClient
+
+    sys.modules["tiktoken"] = None
+    assert dist.get_backend() == "gloo"
+    lead = dist.get_rank() == 0
+    out = {"rank": dist.get_rank(), "device": str(torch.cuda.current_device())}
+    # (a) the store, 4 shards of 65,536 rows
+    host, queries = mesh_store_rows(seed)
+    mesh = pm.build_mesh(model_axis=1)
+    sharded = filled_store(ShardedEmbeddingStore(mesh, dim=DIM,
+                                                 capacity=STORE_ROWS), host)
+    assert sharded._device_store().device.type == "cuda"
+    sharded.search(queries[:1], k=5)
+    torch.cuda.synchronize()
+    tc.reset_counts()
+    got = {b: hit_ids(sharded.search(queries[:b], k=5)) for b in (1, 16)}
+    torch.cuda.synchronize()
+    out["store_counts"] = {**tc.LAUNCHES, "plain": tc.REF_CALLS}
+    out["store_ms"] = {f"b{b}": search_ms(sharded, queries[:b])
+                       for b in (1, 16)}
+    out["shard_rows"] = sharded.shard_rows()
+    if lead:
+        plain = filled_store(EmbeddingStore(dim=DIM, capacity=STORE_ROWS),
+                             host)
+        out["store_equal"] = all(
+            hit_ids(plain.search(queries[:b], k=5)) == got[b]
+            for b in (1, 16))
+        del plain
+    del sharded, host
+    torch.cuda.empty_cache()
+    # (b) the chat decode at chat() width over model_axis=2
+    cfg = CaptionerConfig.chat()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=torch.device("cuda:0"))
+    serving.configure(enabled=True, model_axis=2)
+    client = TPUChatClient(cfg=cfg, params=params, max_new=16, max_batch=4)
+    assert pm.axis_size(client._mesh, "model") == 2
+    assert client.params["blocks"][0]["qkv_w"].shape[1] == 3 * cfg.width // 2
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    texts = client.complete_batch_sync(RAGGED_PROMPTS, max_tokens=16)
+    torch.cuda.synchronize()
+    out["chat_ms"] = (time.perf_counter() - t0) * 1e3
+    out["chat_counts"] = {"flash": fa.LAUNCHES["flash_fwd"],
+                          "plain": fa.REF_CALLS}
+    serving.configure(enabled=False)
+    if lead:
+        one = TPUChatClient(cfg=cfg, params=params, max_new=16, max_batch=4)
+        out["chat_equal"] = one.complete_batch_sync(
+            RAGGED_PROMPTS, max_tokens=16) == texts
+    out["chat_texts"] = texts
+    del client, params
+    torch.cuda.empty_cache()
+    # (c) base() blocks over 2 pipeline stages, B 8, T 128, bf16
+    base = CaptionerConfig.base()
+    bp = init_params(base, torch.Generator().manual_seed(seed + 1),
+                     device=torch.device("cuda:0"))
+    x = torch.randn((8, 128, base.width),
+                    generator=torch.Generator().manual_seed(seed + 2)
+                    ).cuda()
+    idx = torch.arange(128, device="cuda")
+    mask = torch.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
+    pipe = pm.mesh_of(torch.arange(MESH_RANKS).reshape(-1, 2),
+                      ("rep", "pipe"))
+    with torch.no_grad():
+        ref = x
+        for blk in bp["blocks"]:
+            ref = _block(blk, base, ref, mask=mask)[0]
+        t0 = time.perf_counter()
+        got = pipeline_forward(captioner_block_fn(base, mask),
+                               stack_block_params(bp["blocks"]), x, pipe,
+                               n_microbatches=4)
+        torch.cuda.synchronize()
+        out["pipeline_ms"] = (time.perf_counter() - t0) * 1e3
+    out["pipeline_err"] = float((got - ref).abs().max())
+    del bp, x, ref, got
+    # (d) the MoE at the dry-run's sizes, 4 experts over 4 ranks
+    ep = pm.mesh_of(torch.arange(MESH_RANKS).reshape(1, -1),
+                    ("rep", "expert"))
+    moe = {k: v.cuda() for k, v in init_moe_params(
+        torch.Generator().manual_seed(seed), 32, 64, MESH_RANKS).items()}
+    xe = torch.randn((2, 8, 32),
+                     generator=torch.Generator().manual_seed(seed + 3)).cuda()
+    with torch.no_grad():
+        whole = moe_ffn(moe, xe)
+        with pm.use_mesh(ep):
+            split = moe_ffn(place_experts(moe, ep), xe)
+    out["moe_err"] = float((split - whole).abs().max())
+    return out
+
+
+def phase_mesh(tc, seed: int, card: str) -> dict:
+    """Phase 22: the multi-device layer on the one card."""
+    import torch.distributed as dist
+
+    from vidgraph_tpu_torch.memory.embedding_store import EmbeddingStore
+    from vidgraph_tpu_torch.models.captioner import CaptionerConfig, \
+        init_params
+    from vidgraph_tpu_torch.models.tokenizer import batch_encode
+    from vidgraph_tpu_torch.models.train import TrainState
+    from vidgraph_tpu_torch.models.vit import ViTConfig
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.parallel import mesh as pm
+    from vidgraph_tpu_torch.parallel import serving
+    from vidgraph_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    res = {}
+    os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
+    # ---- (1) NCCL, a world of one, mesh.enabled: true --------------------
+    serving.configure(enabled=True, model_axis=1)
+    mesh = serving.serving_mesh()
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1, \
+        (dist.get_backend(), dist.get_world_size())
+    assert tuple(mesh.shape) == (1, 1)
+    host, queries = mesh_store_rows(seed)
+    sharded = filled_store(serving.make_embedding_store(
+        dim=DIM, capacity=STORE_ROWS), host)
+    assert type(sharded).__name__ == "ShardedEmbeddingStore"
+    plain = filled_store(EmbeddingStore(dim=DIM, capacity=STORE_ROWS), host)
+    want = {b: hit_ids(plain.search(queries[:b], k=5)) for b in (1, 16)}
+    torch.cuda.synchronize()
+    tc.reset_counts()
+    got = {b: hit_ids(sharded.search(queries[:b], k=5)) for b in (1, 16)}
+    torch.cuda.synchronize()
+    counts = launch_counts(tc)
+    assert got == want, "world-1 sharded search differs from one card"
+    assert counts["score_topk"] >= 2 and counts["merge"] >= 2 and \
+        counts["plain"] == 0, counts
+    res["store"] = {"launches": counts, "ms": {
+        f"b{b}": {"sharded": search_ms(sharded, queries[:b]),
+                  "one_card": search_ms(plain, queries[:b])}
+        for b in (1, 16)}}
+    del sharded, plain, host
+    torch.cuda.empty_cache()
+    # hybrid retrieval on bench.py's graph: through the mesh and on one card
+    tc.reset_counts()
+    mesh_run = bench_retrieval("cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts(tc)
+    assert counts["score_topk"] >= len(mesh_run["queries"]) and \
+        counts["plain"] == 0, counts
+    serving.configure(enabled=False)
+    one_run = bench_retrieval("cuda")
+    assert mesh_run["texts"] == one_run["texts"], \
+        "mesh-routed retrieval differs from one card"
+    res["retrieval"] = {"launches": counts, "p50_ms": mesh_run["p50_ms"],
+                        "one_card_p50_ms": one_run["p50_ms"]}
+    # the chat LM at chat() width, 64 new bytes, one dispatch
+    cfg = CaptionerConfig.chat()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device=torch.device("cuda"))
+    one = chat_texts(cfg, params, enabled=False)
+    fa.reset_counts()
+    on_mesh = chat_texts(cfg, params, enabled=True)
+    torch.cuda.synchronize()
+    flash = {"flash": fa.LAUNCHES["flash_fwd"], "plain": fa.REF_CALLS}
+    assert on_mesh == one, "world-1 mesh chat decode differs from one card"
+    assert flash == {"flash": cfg.layers, "plain": 0}, flash
+    res["chat"] = {"launches": flash, "bytes": [len(t) for t in on_mesh]}
+    del params
+    torch.cuda.empty_cache()
+    # TrainState at ViT-B/32 + base(): one step over the mesh and without
+    rng = np.random.default_rng(seed + 22)
+    images = rng.standard_normal((8, 224, 224, 3), dtype=np.float32)
+    tokens = batch_encode(["The scene shows a red object on a dark "
+                           "background."] * 8, 96)
+    losses = {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        state = TrainState.create(
+            ViTConfig.b32(), CaptionerConfig.base(), torch.device("cuda"),
+            learning_rate=3e-4,
+            generator=torch.Generator().manual_seed(seed), mesh=m)
+        losses[name] = state.step(*state.shard_batch(images, tokens))[1]
+        del state
+        torch.cuda.empty_cache()
+    assert abs(losses["mesh"] - losses["one_device"]) < 1e-5, losses
+    res["train_state"] = losses
+    serving.configure(enabled="auto", model_axis=1)
+    pm.shutdown()
+    # ---- (2) gloo, 4 ranks, each computing on cuda:0 ---------------------
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:mesh_rank", MESH_RANKS, (seed,),
+                      backend="gloo", device="cuda:0", timeout_s=300.0,
+                      deadline_s=600.0, threads=2)
+    wall = time.perf_counter() - t0
+    lead = ranks[0]
+    assert lead["store_equal"] and lead["chat_equal"], \
+        {k: lead[k] for k in ("store_equal", "chat_equal")}
+    for r in ranks:
+        c = r["store_counts"]
+        assert c["score_topk"] >= 2 and c["merge"] >= 2 and \
+            c["plain"] == 0, (r["rank"], c)
+        assert r["chat_counts"]["flash"] == cfg.layers and \
+            r["chat_counts"]["plain"] == 0, (r["rank"], r["chat_counts"])
+        assert r["chat_texts"] == lead["chat_texts"]
+        assert r["pipeline_err"] < PIPE_TOL, (r["rank"], r["pipeline_err"])
+        assert r["moe_err"] < 1e-5, (r["rank"], r["moe_err"])
+    res["gloo_4_ranks_on_one_card"] = {
+        "note": "one card, not a multi-card number",
+        "wall_s": wall, "shard_rows": lead["shard_rows"],
+        "store_launches": [r["store_counts"] for r in ranks],
+        "store_ms": [r["store_ms"] for r in ranks],
+        "chat_launches": [r["chat_counts"] for r in ranks],
+        "chat_ms": [r["chat_ms"] for r in ranks],
+        "pipeline_ms": [r["pipeline_ms"] for r in ranks],
+        "pipeline_err": max(r["pipeline_err"] for r in ranks),
+        "moe_err": max(r["moe_err"] for r in ranks)}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 22: the multi-device layer on {card} (NCCL world 1; gloo "
+        f"{MESH_RANKS} ranks on one card, not a multi-card number): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def chat_texts(cfg, params, enabled: bool) -> list:
+    """One dispatch of ``RAGGED_PROMPTS`` through ``TPUChatClient``, 64 new
+    bytes, with the serving mesh on (a world of one) or off."""
+    from vidgraph_tpu_torch.parallel import serving
+    from vidgraph_tpu_torch.parallel.dryrun import RAGGED_PROMPTS
+    from vidgraph_tpu_torch.services.llm_client import TPUChatClient
+
+    serving.configure(enabled=enabled, model_axis=1)
+    client = TPUChatClient(cfg=cfg, params=params, max_new=64, max_batch=4)
+    assert (client._mesh is not None) == enabled
+    return client.complete_batch_sync(RAGGED_PROMPTS, max_tokens=64)
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
-                  quant, bwd, training, streams, tooling) -> dict:
+                  quant, bwd, training, streams, tooling, mesh) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -3414,6 +3742,15 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     sk = streams["kernels"]
     vit160, sweep = tooling["vit_b160"], tooling["sweep_epoch"]
     judge = tooling["judge_agreement"]
+    # phase 22's paths: the world-1 mesh's store, retrieval and chat, and
+    # the 4 gloo ranks' store and chat
+    gloo = mesh["gloo_4_ranks_on_one_card"]
+    mesh_topk = {key: (mesh["store"]["launches"][key]
+                       + mesh["retrieval"]["launches"][key]
+                       + sum(c[key] for c in gloo["store_launches"]))
+                 for key in ("score_topk", "merge")}
+    mesh_flash = (mesh["chat"]["launches"]["flash"]
+                  + sum(c["flash"] for c in gloo["chat_launches"]))
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
@@ -3432,8 +3769,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": (launches["score_topk"]
-                      + sweep["topk_launches"]["score_topk"]),
+                      + sweep["topk_launches"]["score_topk"]
+                      + mesh_topk["score_topk"]),
          "sweep_epoch_launches": sweep["topk_launches"]["score_topk"],
+         "mesh_launches": mesh_topk["score_topk"],
          "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
          "ms": stages["score_topk_b16_k5"]["kernel_ms"],
          "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
@@ -3450,8 +3789,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   "CUDA-graph replay"},
         {"name": "cosine_topk_merge", "route": "cuda", "source": src,
          "replaces": replaces,
-         "launches": launches["merge"] + sweep["topk_launches"]["merge"],
+         "launches": (launches["merge"] + sweep["topk_launches"]["merge"]
+                      + mesh_topk["merge"]),
          "sweep_epoch_launches": sweep["topk_launches"]["merge"],
+         "mesh_launches": mesh_topk["merge"],
          "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
          "ms": stages["merge_b16_k5"]["kernel_ms"],
          "plain_ms": stages["merge_b16_k5"]["plain_ms"],
@@ -3472,8 +3813,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "launches": (chat["kg"]["flash"] + chat["benchmark"]["flash"]
                       + sum(c["flash"] for c in vision_counts)
                       + inst["flash_fwd"] + mid["flash_fwd"]
-                      + judge["flash_launches"]),
+                      + judge["flash_launches"] + mesh_flash),
          "judge_agreement_launches": judge["flash_launches"],
+         "mesh_launches": mesh_flash,
          "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
          "lse_max_abs_err": max(r["lse_err"] for r in bwd_rows.values()),
          "train_ms": brow["fwd_lse_ms"],
@@ -3587,7 +3929,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-21 "
+                    help="development: run only these of phases 14-22 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3624,9 +3966,10 @@ def main() -> int:
             18: lambda: phase_serve(tc, args.seed, card),
             19: lambda: phase_encoders(args.seed, card),
             20: lambda: phase_encoder_trainers(args.seed, card),
-            21: lambda: phase_tooling(args.seed, card)}
+            21: lambda: phase_tooling(args.seed, card),
+            22: lambda: phase_mesh(tc, args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 21")
+        ap.error("--phases takes 14 to 22")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -3660,9 +4003,12 @@ def main() -> int:
     trainers = late[20]()
     tooling = late[21]()
     log(f"phases 1-21 done at {time.perf_counter() - t0:.1f} s")
+    mesh = late[22]()
+    log(f"phases 1-22 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
-                           q8k, quant, bwd, training, streams, tooling)
+                           q8k, quant, bwd, training, streams, tooling,
+                           mesh)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -3676,6 +4022,7 @@ def main() -> int:
         "tooling": {k: v for k, v in tooling.items() if k != "vit_b160"},
         "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
                      if k != "profile"},
+        "mesh": mesh,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

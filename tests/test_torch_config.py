@@ -32,11 +32,49 @@ def test_defaults_and_unknown_keys_equal():
     assert PipelineConfig().model_dump() == JaxConfig().model_dump()
 
 
+@pytest.fixture
+def serving_policy():
+    """The serving policy and any process group a test makes, undone."""
+    from vidgraph_tpu_torch.parallel import mesh, serving
+
+    yield serving
+    serving.configure(enabled="auto", model_axis=1)
+    mesh.shutdown()
+
+
 @pytest.mark.parametrize("mesh", [{"model_axis": 2}, {"data_axis": 4},
                                   {"enabled": True, "model_axis": 8}])
-def test_multi_device_mesh_raises(mesh):
-    with pytest.raises(NotImplementedError, match="one card"):
-        PipelineConfig.from_dict({"mesh": mesh})
+def test_multi_device_mesh_raises(mesh, serving_policy):
+    """A ``mesh:`` section wider than one device loads (it raised before
+    the port had meshes) and records the serving policy; ``enabled:
+    true`` then builds a mesh over this process's world of one (the model
+    axis is factored into the world: (1, 1))."""
+    import torch.distributed as dist
+
+    cfg = PipelineConfig.from_dict({"mesh": mesh})
+    assert cfg.mesh.model_axis == mesh.get("model_axis", 1)
+    assert serving_policy._policy == {"enabled": mesh.get("enabled", "auto"),
+                                      "model_axis": cfg.mesh.model_axis}
+    built = serving_policy.serving_mesh()
+    if mesh.get("enabled") is True:
+        assert tuple(built.shape) == (1, 1)
+        assert built.mesh_dim_names == ("data", "model")
+        assert dist.get_world_size() == 1
+    else:
+        assert built is None            # auto at a world of one
+
+
+def test_enabled_mesh_of_one_device_builds_a_world_one_mesh(serving_policy):
+    """``mesh: {enabled: true, model_axis: 1}`` builds a world-1 mesh on
+    the port's device, and the serving stores are row-sharded over it."""
+    import torch.distributed as dist
+
+    PipelineConfig.from_dict({"mesh": {"enabled": True, "model_axis": 1}})
+    built = serving_policy.serving_mesh()
+    assert tuple(built.shape) == (1, 1) and dist.get_world_size() == 1
+    assert dist.get_backend() == "gloo"
+    store = serving_policy.make_embedding_store(dim=8)
+    assert type(store).__name__ == "ShardedEmbeddingStore"
 
 
 @pytest.mark.parametrize("mesh", [{"enabled": False, "model_axis": 2},

@@ -53,7 +53,7 @@ def test_host_module_is_a_verbatim_copy(rel):
 
 
 # copies whose code is the JAX module's, under a module docstring of their own
-CODE_COPIES = ["cli/main.py", "models/instruct_data.py"]
+CODE_COPIES = ["models/instruct_data.py"]
 
 
 def _code(path: Path) -> str:
@@ -79,6 +79,11 @@ def test_host_module_code_is_a_copy(rel):
 # every other definition of either file is the port's own, for the reason
 # given in PORT_OWN
 DEFINITION_COPIES = {
+    "cli/main.py": [
+        "logger", "run_vlm_extraction", "run_kg_construction",
+        "run_offline_retrieval", "run_ask", "run_batch_offline_retrieval",
+        "run_export_graph", "run_import_graph", "run_benchmark",
+        "run_streams", "build_parser", "parse_true_chunks_args"],
     "services/llm_client.py": [
         "logger", "ChatClient", "HttpChatClient", "_STOPWORDS",
         "_VERB_HINTS", "_sentences", "_words", "_extract_triplets_heuristic",
@@ -101,6 +106,10 @@ DEFINITION_COPIES = {
         "TrainedRerankClient", "HttpRerankClient", "make_rerank_client"],
 }
 PORT_OWN = {
+    "cli/main.py": {
+        "main": "the JAX body inside cli/ranks.py::rank_scope: under "
+                "torchrun only rank 0 writes files and prints",
+    },
     "services/llm_client.py": {
         "TPUChatClient": "the chat LM's decode in PyTorch on the card",
     },
@@ -169,12 +178,16 @@ def test_listed_definitions_are_copies(rel):
 
 
 # modules of the port with no module of the same path in the JAX package
-NEW = {"convert.py", "ops/_build.py", "ops/flash_attention.py"}
+NEW = {"convert.py", "ops/_build.py", "ops/flash_attention.py",
+       "cli/ranks.py", "parallel/comm.py", "parallel/dryrun.py",
+       "parallel/launch.py", "parallel/tensor_parallel.py"}
 # modules rewritten for PyTorch (the kernels' wrappers and the models that
 # reach them), held to the JAX package by their own tests/test_torch_*.py
 REWRITTEN = {"ops/preprocess.py", "ops/short_attention.py", "models/vit.py",
              "services/vlm_client.py", "models/text_embedder.py",
-             "models/reranker.py", "models/answer_selector.py"}
+             "models/reranker.py", "models/answer_selector.py",
+             "parallel/mesh.py", "parallel/moe.py", "parallel/pipeline.py",
+             "parallel/serving.py", "parallel/sharded_search.py"}
 
 
 def test_every_port_module_has_a_counterpart():
@@ -197,3 +210,14 @@ def test_listed_modules_exist_and_are_not_copies(rel):
     assert (rel in NEW) != jax_side.exists(), rel
     if jax_side.exists():
         assert port.read_bytes() != jax_side.read_bytes()
+
+
+def test_repro_script_is_the_jax_script_on_the_port():
+    """``scripts/repro_torch_best_config.sh`` is ``repro_best_config.sh``
+    with the JAX package's CLI replaced by the port's, and nothing else."""
+    jax_side = (ROOT / "scripts" / "repro_best_config.sh").read_text()
+    port = (ROOT / "scripts" / "repro_torch_best_config.sh").read_text()
+    assert "vidgraph_tpu." in jax_side
+    assert port == jax_side.replace("vidgraph_tpu.", "vidgraph_tpu_torch.")
+    assert (ROOT / "scripts" / "repro_torch_best_config.sh").stat().st_mode \
+        & 0o111

@@ -223,9 +223,27 @@ def test_loss_decreases_overfitting_one_batch():
 
 @pytest.mark.parametrize("mesh", [2, [0, 1, 2, 3]])
 def test_a_mesh_wider_than_one_device_raises(mesh):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ttrain.TrainState.create(_vit_cfg(J_VIT), _cap_cfg(J_CAP),
-                                 torch.device("cpu"), mesh=mesh)
+    """``TrainState.create`` takes a mesh (it raised before the port had
+    meshes): over this process's world of one, a mesh built with
+    ``model_axis=2`` or over ranks ``[0]`` is (1, 1), and three steps
+    equal the one-device state's (same seed, same batch).  The mesh
+    arithmetic of wider worlds is ``tests/test_torch_parallel_*.py``'s."""
+    from vidgraph_tpu_torch.parallel import mesh as pmesh
+
+    try:
+        built = (pmesh.build_mesh(model_axis=mesh) if isinstance(mesh, int)
+                 else pmesh.build_mesh(ranks=mesh[:1]))
+        assert tuple(built.shape) == (1, 1)
+        states = [ttrain.TrainState.create(
+            _vit_cfg(J_VIT), _cap_cfg(J_CAP), torch.device("cpu"), mesh=m)
+            for m in (built, None)]
+        assert states[0].mesh is built and states[1].mesh is None
+        batch = _batch(3, "a blue line")
+        for _ in range(3):
+            losses = [st.step(*st.shard_batch(*batch))[1] for st in states]
+            assert losses[0] == losses[1]
+    finally:
+        pmesh.shutdown()
 
 
 def test_fused_vit_attention_trains_on_the_cpu_plain_version():

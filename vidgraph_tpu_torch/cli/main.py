@@ -14,6 +14,9 @@ reference README documented ``graph`` while the parser registered ``vlm``),
 ``benchmark``; identical flags; ``batch-retrieve`` also writes
 ``metrics/retrieval_times_{uuid}_{timestamp}.json`` with per-query and
 average times.
+
+``main`` is the port's own in one respect: under ``torchrun`` every rank
+runs the command and only rank 0 writes its files (``cli/ranks.py``).
 """
 from __future__ import annotations
 
@@ -307,63 +310,66 @@ def parse_true_chunks_args(parts: Optional[List[str]]
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from .ranks import rank_scope
+
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command in ("vlm", "graph"):
-        result = asyncio.run(run_vlm_extraction(args.config, args.video,
-                                                args.output))
-        print(f"VLM extraction completed: {result}")
-    elif args.command == "kg":
-        result = asyncio.run(run_kg_construction(args.config,
-                                                 args.vlm_output,
-                                                 args.retrieval_schedule,
-                                                 args.resume_uuid))
-        print(f"Knowledge graph construction completed with UUID: {result}")
-    elif args.command == "retrieve":
-        true_chunks = parse_true_chunks_args(args.true_chunks)
-        result = asyncio.run(run_offline_retrieval(
-            args.config, args.graph_uuid, args.query, args.groundtruth,
-            true_chunks))
-        print(f"Retrieval completed: {result}")
-    elif args.command == "ask":
-        result = asyncio.run(run_ask(args.config, args.graph_uuid,
-                                     args.query))
-        print(f"Answered in {result}")
-    elif args.command == "batch-retrieve":
-        result = asyncio.run(run_batch_offline_retrieval(
-            args.config, args.graph_uuid, args.input, args.output))
-        print(f"Batch retrieval completed: {result}")
-    elif args.command == "export":
-        result = asyncio.run(run_export_graph(args.config, args.graph_uuid,
-                                              args.output))
-        print(f"Graph export completed: {result}")
-    elif args.command == "import":
-        result = asyncio.run(run_import_graph(args.config, args.input,
-                                              args.new_uuid))
-        print(f"Graph import completed with UUID: {result}")
-    elif args.command == "benchmark":
-        result = asyncio.run(run_benchmark(args.config, args.input,
-                                           args.output))
-        print(f"Benchmark evaluation completed: {result}")
-    elif args.command == "prune":
-        from ..pipeline.prune import prune_export_file
+    with rank_scope(args):
+        if args.command in ("vlm", "graph"):
+            result = asyncio.run(run_vlm_extraction(args.config, args.video,
+                                                    args.output))
+            print(f"VLM extraction completed: {result}")
+        elif args.command == "kg":
+            result = asyncio.run(run_kg_construction(args.config,
+                                                     args.vlm_output,
+                                                     args.retrieval_schedule,
+                                                     args.resume_uuid))
+            print(f"Knowledge graph construction completed with UUID: {result}")
+        elif args.command == "retrieve":
+            true_chunks = parse_true_chunks_args(args.true_chunks)
+            result = asyncio.run(run_offline_retrieval(
+                args.config, args.graph_uuid, args.query, args.groundtruth,
+                true_chunks))
+            print(f"Retrieval completed: {result}")
+        elif args.command == "ask":
+            result = asyncio.run(run_ask(args.config, args.graph_uuid,
+                                         args.query))
+            print(f"Answered in {result}")
+        elif args.command == "batch-retrieve":
+            result = asyncio.run(run_batch_offline_retrieval(
+                args.config, args.graph_uuid, args.input, args.output))
+            print(f"Batch retrieval completed: {result}")
+        elif args.command == "export":
+            result = asyncio.run(run_export_graph(args.config, args.graph_uuid,
+                                                  args.output))
+            print(f"Graph export completed: {result}")
+        elif args.command == "import":
+            result = asyncio.run(run_import_graph(args.config, args.input,
+                                                  args.new_uuid))
+            print(f"Graph import completed with UUID: {result}")
+        elif args.command == "benchmark":
+            result = asyncio.run(run_benchmark(args.config, args.input,
+                                               args.output))
+            print(f"Benchmark evaluation completed: {result}")
+        elif args.command == "prune":
+            from ..pipeline.prune import prune_export_file
 
-        result = prune_export_file(args.input, args.output, args.threshold)
-        print(f"Graph pruning completed: {result}")
-    elif args.command == "stream":
-        result = asyncio.run(run_streams(args))
-        print(f"Stream run completed: {json.dumps(result)}")
-    elif args.command == "serve":
-        from ..services.server import VideoMemoryServer
+            result = prune_export_file(args.input, args.output, args.threshold)
+            print(f"Graph pruning completed: {result}")
+        elif args.command == "stream":
+            result = asyncio.run(run_streams(args))
+            print(f"Stream run completed: {json.dumps(result)}")
+        elif args.command == "serve":
+            from ..services.server import VideoMemoryServer
 
-        config = PipelineConfig.from_yaml(args.config)
-        server = VideoMemoryServer(config, host=args.host, port=args.port)
-        print(f"Serving video-memory API on {args.host}:{args.port}")
-        asyncio.run(server.serve_forever())
-    else:
-        parser.print_help()
-        return 1
-    return 0
+            config = PipelineConfig.from_yaml(args.config)
+            server = VideoMemoryServer(config, host=args.host, port=args.port)
+            print(f"Serving video-memory API on {args.host}:{args.port}")
+            asyncio.run(server.serve_forever())
+        else:
+            parser.print_help()
+            return 1
+        return 0
 
 
 if __name__ == "__main__":

@@ -2,11 +2,12 @@
 ``vidgraph_tpu/core/config.py``: the same sections, fields and defaults, so
 every YAML file under ``config/`` loads unchanged in both packages.
 
-One difference: ``from_dict`` records no serving-mesh policy.  The port
-serves on one card, and a ``mesh:`` section that asks for more than one
-device raises ``NotImplementedError`` (multi-card serving is ROADMAP slice
-9).  Backend names keep their meaning: ``tpu`` selects the in-process
-accelerator, which here is the card ``core/platform.py::device()`` names.
+``from_dict`` records the ``mesh:`` section as the serving-mesh policy
+(``parallel/serving.py::configure``), as the JAX package does; the mesh is
+built on first use, over the ranks of the process group
+(``torchrun --nproc-per-node N``).  Backend names keep their meaning:
+``tpu`` selects the in-process accelerator, which here is the card
+``core/platform.py::device()`` names.
 
 Mirrors the reference's config surface (reference: src/core/config.py:5-114 and
 config/base_config.yaml) so that reference YAML files load unchanged, and adds
@@ -192,8 +193,8 @@ class BackendConfig(_Model):
 
 
 class MeshConfig(_Model):
-    # Kept so reference YAMLs load; the port serves on one card and
-    # raises on a mesh wider than one device (_require_single_device).
+    # "auto" builds a serving mesh iff the process group has >1 rank;
+    # true/false force it on (a world of one when no group is) / off
     enabled: Any = "auto"
     data_axis: int = 0        # 0 = use all remaining devices
     model_axis: int = 1
@@ -223,20 +224,6 @@ class EmbeddingMemoryConfig(_Model):
     dtype: str = "float32"
 
 
-def _require_single_device(mesh: MeshConfig) -> None:
-    """Raise on a mesh that spans more than one device: the JAX package
-    row-shards the embedding memory and tensor-shards the vision models
-    over such a mesh (``vidgraph_tpu/parallel/serving.py``); the port has
-    no multi-card serving yet."""
-    if mesh.enabled in (False, "false", "off", 0):
-        return
-    if int(mesh.model_axis) > 1 or int(mesh.data_axis) > 1:
-        raise NotImplementedError(
-            f"mesh data_axis={mesh.data_axis} model_axis={mesh.model_axis} "
-            "asks for a multi-device serving mesh; the PyTorch port serves "
-            "on one card (multi-card serving: ROADMAP slice 9)")
-
-
 class PipelineConfig(_Model):
     video: VideoConfig = VideoConfig()
     vlm: VLMConfig = VLMConfig()
@@ -264,7 +251,12 @@ class PipelineConfig(_Model):
     @classmethod
     def from_dict(cls, raw: Dict[str, Any]) -> "PipelineConfig":
         cfg = cls.model_validate(raw or {})
-        _require_single_device(cfg.mesh)
+        # Record the serving-mesh policy process-wide so every entry point
+        # (CLI, engines, servers) picks it up without explicit wiring; the
+        # mesh itself is built lazily on first use.
+        from ..parallel import serving
+
+        serving.configure(cfg.mesh)
         return cfg
 
     def to_dict(self) -> Dict[str, Any]:

@@ -4,7 +4,10 @@
 ``device()`` is the one place the port picks its accelerator: the
 ``VIDGRAPH_TORCH_DEVICE`` environment variable, ``cuda`` by default.  A
 CUDA device that is asked for and absent raises — nothing silently carries
-on on the CPU.  The CPU tests set ``VIDGRAPH_TORCH_DEVICE=cpu``.
+on on the CPU.  The CPU tests set ``VIDGRAPH_TORCH_DEVICE=cpu``.  Under a
+launcher that sets ``LOCAL_RANK`` (``torchrun``), plain ``cuda`` is the
+rank's own card, ``cuda:LOCAL_RANK``; a device with an index is taken as
+it is (several ranks on one card name ``cuda:0``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ DEVICE_ENV = "VIDGRAPH_TORCH_DEVICE"
 
 def device() -> torch.device:
     """The device the port computes on (``VIDGRAPH_TORCH_DEVICE``)."""
-    dev = torch.device(os.environ.get(DEVICE_ENV, "cuda"))
+    name = os.environ.get(DEVICE_ENV, "cuda")
+    if name == "cuda" and "LOCAL_RANK" in os.environ:
+        name = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"{DEVICE_ENV}={dev} but torch.cuda.is_available() is false; "

@@ -103,6 +103,23 @@ class EmbeddingStore:
             self._mirror_dirty = False
         return self._mirror
 
+    def _device_topk(self, q: torch.Tensor, kk: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-``kk`` (values, row indices) of ``q`` over the live rows."""
+        with self._lock:
+            store = self._device_store()
+            count = self._count
+        vals, idx = cosine_topk(q, store, kk, count=count)
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    def _device_scores(self, q: torch.Tensor) -> np.ndarray:
+        """Dense [nq, count] scores (one kernel call)."""
+        with self._lock:
+            store = self._device_store()
+            count = self._count
+        # the first ``count`` rows: the rows past it are unwritten
+        return cosine_scores(q, store[:count]).cpu().numpy()
+
     def _queries(self, queries: np.ndarray) -> torch.Tensor:
         q = np.atleast_2d(np.asarray(queries, np.float32))
         return torch.from_numpy(np.ascontiguousarray(q)).to(self._device)
@@ -164,11 +181,7 @@ class EmbeddingStore:
         if self._count == 0:
             return [[] for _ in range(q.shape[0])]
         kk = min(k, self._count)
-        with self._lock:
-            store = self._device_store()
-            count = self._count
-        vals, idx = cosine_topk(q, store, kk, count=count)
-        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        vals, idx = self._device_topk(q, kk)
         out: List[List[Tuple[str, float]]] = []
         for r in range(q.shape[0]):
             row = []
@@ -187,11 +200,7 @@ class EmbeddingStore:
         q = self._queries(queries)
         if self._count == 0:
             return np.zeros((q.shape[0], 0), np.float32)
-        with self._lock:
-            store = self._device_store()
-            count = self._count
-        # the first ``count`` rows: the rows past it are unwritten
-        return cosine_scores(q, store[:count]).cpu().numpy()
+        return self._device_scores(q)
 
     # -- persistence ---------------------------------------------------------
     def state_dict(self) -> Dict:

@@ -38,6 +38,16 @@ rounding:
 * The decode loop stops once every row has emitted EOS: a done row emits
   EOS at every later step of the JAX package's static scan, so the tokens
   are the same (checked every ``_DONE_CHECK`` steps, one host sync each).
+* Tensor parallelism (``parallel/``): a tree of one rank's slices
+  (``models/train.py::shard_captioner``) holds a block's local heads in
+  ``qkv_w`` [d, 3 d/m] and its local MLP hidden in ``fc1_w`` [d, 4 d/m];
+  the code reads the split from those widths.  Inside ``use_mesh`` the
+  block runs its local heads and hidden columns and all-reduces over
+  "model" once after ``attn_o`` and once after ``fc2``; each reduces
+  float32 partial sums, and the replicated bias is added once after it.
+  The KV caches hold the local heads.  Every rank of the group leaves
+  the decode at the same step: the all-done check is reduced over the
+  group.
 * The decode is bound by the host's kernel launches (eager PyTorch, one
   step at a time), so a step launches as few as it can: the layer norm is
   ``F.layer_norm``, the decode mask is updated in place once a step, and
@@ -56,6 +66,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..parallel import comm
+from ..parallel.mesh import (MODEL_AXIS, active_group, active_mesh,
+                             axis_group)
 from .checkpoint import tree_leaves
 from .quant8 import is_q8, wdot
 from .tokenizer import BOS_ID, EOS_ID, PAD_ID, VOCAB_SIZE
@@ -223,21 +236,52 @@ def _linear(x, w, b, cfg: CaptionerConfig):
     return wdot(x, w, cfg.dtype, cfg.qmode) + b.to(cfg.dtype)
 
 
+def _shape(w) -> torch.Size:
+    return w.q.shape if is_q8(w) else w.shape
+
+
+def _column_input(y, w, full: int):
+    """``y``, marked as the input of a column-split product when ``w``
+    holds fewer than ``full`` output columns (the gradient is then
+    all-reduced over "model")."""
+    if _shape(w)[1] < full:
+        return comm.copy_to(y, active_group(MODEL_AXIS, "captioner weights"))
+    return y
+
+
+def _row_linear(x, w, b, cfg: CaptionerConfig, full: int):
+    """``_linear`` of a row-split product: ``w`` holds this rank's rows
+    (fewer than ``full``), so the float32 partial sums are all-reduced
+    over "model" before the cast and the bias."""
+    if _shape(w)[0] == full:
+        return _linear(x, w, b, cfg)
+    part = x.to(cfg.dtype).float() @ w.to(cfg.dtype).float()
+    group = active_group(MODEL_AXIS, "captioner weights")
+    return comm.reduce_from(part, group).to(cfg.dtype) + b.to(cfg.dtype)
+
+
 def _mlp(bp, cfg: CaptionerConfig, x):
     """Second half of a block: x + fc2(gelu(fc1(ln2(x))))."""
+    d = x.shape[-1]
     y = _ln(x, bp["ln2_scale"], bp["ln2_bias"]).to(cfg.dtype)
+    y = _column_input(y, bp["fc1_w"], 4 * d)
     hdn = F.gelu(_linear(y, bp["fc1_w"], bp["fc1_b"], cfg),
                  approximate="tanh")
-    return x + _linear(hdn, bp["fc2_w"], bp["fc2_b"], cfg).float()
+    return x + _row_linear(hdn, bp["fc2_w"], bp["fc2_b"], cfg,
+                           4 * d).float()
 
 
 def _qkv(bp, cfg: CaptionerConfig, x):
-    """q, k, v [B, T, h, hd] in the compute dtype (views of one product)."""
+    """q, k, v [B, T, h, hd] in the compute dtype (views of one product);
+    h is the rank's local heads under tensor parallelism."""
     b, t, d = x.shape
-    h = cfg.heads
+    hd = d // cfg.heads
     y = _ln(x, bp["ln1_scale"], bp["ln1_bias"]).to(cfg.dtype)
+    y = _column_input(y, bp["qkv_w"], 3 * d)
     qkv = _linear(y, bp["qkv_w"], bp["qkv_b"], cfg)
-    return [z.reshape(b, t, h, d // h) for z in qkv.split(d, dim=-1)]
+    width = qkv.shape[-1] // 3
+    return [z.reshape(b, t, width // hd, hd)
+            for z in qkv.split(width, dim=-1)]
 
 
 def _attn_masked(q, k, v, mask):
@@ -267,8 +311,8 @@ def _block(bp, cfg: CaptionerConfig, x, flash: bool = False, mask=None):
         o = _attn_masked(q, k, v, mask)
     else:
         o = flash_attention(q, k, v, cfg.num_vision_tokens, flash=flash)
-    o = o.reshape(b, t, d).to(cfg.dtype)
-    x = x + _linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg).float()
+    o = o.reshape(b, t, -1).to(cfg.dtype)
+    x = x + _row_linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg, d).float()
     return _mlp(bp, cfg, x), k, v
 
 
@@ -341,8 +385,8 @@ def _step_block(bp, cfg: CaptionerConfig, x, kcache, vcache,
     att = att.masked_fill(masked, -1e30)
     att = torch.softmax(att, dim=-1).to(cfg.dtype)
     o = (att.float() @ vcache).transpose(1, 2)       # [B, 1, h, hd]
-    o = o.reshape(b, 1, d).to(cfg.dtype)
-    x = x + _linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg).float()
+    o = o.reshape(b, 1, -1).to(cfg.dtype)
+    x = x + _row_linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg, d).float()
     return _mlp(bp, cfg, x)
 
 
@@ -351,12 +395,11 @@ def _prefill(params, cfg: CaptionerConfig, x, max_t: int,
     """Every block over the prompt ``x`` [B, t0, d], writing its K/V into
     fresh ``max_t``-slot caches.  Returns (x, caches)."""
     b, t0, d = x.shape
-    h = cfg.heads
     caches = []
     for bp in params["blocks"]:
         x, k, v = _block(bp, cfg, x, flash)
-        kc = torch.zeros((b, h, max_t, d // h), dtype=torch.float32,
-                         device=x.device)
+        kc = torch.zeros((b, k.shape[2], max_t, k.shape[3]),
+                         dtype=torch.float32, device=x.device)
         vc = torch.zeros_like(kc)
         kc[:, :, :t0] = k.transpose(1, 2)
         vc[:, :, :t0] = v.transpose(1, 2)
@@ -386,11 +429,15 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     key = torch.arange(caches[0][0].shape[2], device=dev)
     masked = (key[None, :] >= start[:, None])[:, None, None, :]
+    # every rank of the "model" group leaves at the same step
+    mesh = active_mesh()
+    group = None if mesh is None else axis_group(mesh, MODEL_AXIS)
     for i in range(max_new):
         toks[:, i] = tok
         done = done | (tok == EOS_ID)
         if i == max_new - 1 or (i % _DONE_CHECK == _DONE_CHECK - 1
-                                and bool(done.all())):
+                                and comm.same_on_all(bool(done.all()),
+                                                     group)):
             break
         # positions past max_len reuse the last embedding, as JAX's
         # clamped gather does (generate does not check the budget)

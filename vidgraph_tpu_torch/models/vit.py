@@ -24,6 +24,16 @@ float32 parameters:
 the CUDA kernel on the card).  An odd head count takes ``einsum``.  The
 products (patch embedding, qkv, proj, fc1, fc2) are ``torch.matmul``, as
 the JAX package leaves them to XLA.
+
+Tensor parallelism: ``param_shardings`` gives the JAX package's specs as
+placements (qkv/fc1 kernels column-split, proj/fc2 kernels row-split over
+"model", the rest replicated), and ``shard_tower`` keeps this rank's
+slices in the tower's ``Dense`` layers (``Dense.split``): a column layer
+keeps its bias's slice too, where GSPMD slices the replicated bias on use;
+a layer whose width the model axis does not divide stays whole.  Inside
+``parallel.mesh.use_mesh`` the attention runs the local heads, and each
+row layer all-reduces its float32 partial sums over "model" before its
+bias; the final ``proj`` takes its slice of the class token's columns.
 """
 from __future__ import annotations
 
@@ -37,6 +47,10 @@ from torch import nn
 
 from ..ops.preprocess import patchify
 from ..ops.short_attention import fused_short_attention, packed_attention
+from ..parallel import comm
+from ..parallel import tensor_parallel as tp
+from ..parallel.mesh import (MODEL_AXIS, active_group, axis_group,
+                             placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,17 +81,31 @@ class ViTConfig:
 
 
 class Dense(nn.Module):
-    """Flax ``nn.Dense(dtype=...)``: kernel [in, out], bias [out]."""
+    """Flax ``nn.Dense(dtype=...)``: kernel [in, out], bias [out].
+    ``split`` is None, ``"cols"`` (this rank's output columns) or
+    ``"rows"`` (its input rows; the partial sums are all-reduced)."""
 
     def __init__(self, d_in: int, d_out: int, dtype) -> None:
         super().__init__()
         self.dtype = dtype
+        self.split: Optional[str] = None
         self.kernel = nn.Parameter(torch.empty(d_in, d_out))
         self.bias = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-        return y + self.bias.to(self.dtype)
+        if self.split is None:
+            y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+            return y + self.bias.to(self.dtype)
+        group = active_group(MODEL_AXIS, "ViT weights")
+        if self.split == "cols":
+            y = torch.matmul(comm.copy_to(x, group).to(self.dtype),
+                             self.kernel.to(self.dtype))
+            return y + self.bias.to(self.dtype)
+        if x.shape[-1] != self.kernel.shape[0]:
+            x = comm.scatter_last(x, group)
+        part = x.to(self.dtype).float() @ self.kernel.to(self.dtype).float()
+        return comm.reduce_from(part, group).to(self.dtype) \
+            + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -103,12 +131,14 @@ class MHA(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        d = c.width
-        hd = d // c.heads
+        hd = c.width // c.heads
         b, n, _ = x.shape
-        q, k, v = (z.reshape(b, n, c.heads, hd)
-                   for z in self.qkv(x).split(d, dim=-1))
-        impl = c.attn_impl if c.heads % 2 == 0 else "einsum"
+        qkv = self.qkv(x)
+        width = qkv.shape[-1] // 3
+        heads = width // hd                  # the rank's local heads
+        q, k, v = (z.reshape(b, n, heads, hd)
+                   for z in qkv.split(width, dim=-1))
+        impl = c.attn_impl if heads % 2 == 0 else "einsum"
         if impl in ("packed", "fused"):
             qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))
             if impl == "fused":
@@ -124,7 +154,7 @@ class MHA(nn.Module):
         else:
             raise ValueError(f"attn_impl must be einsum|packed|fused, got "
                              f"{c.attn_impl!r}")
-        return self.proj(out.reshape(b, n, d).to(c.dtype))
+        return self.proj(out.reshape(b, n, width).to(c.dtype))
 
 
 class Block(nn.Module):
@@ -225,3 +255,100 @@ def state_dict_from_tree(tree: Mapping[str, Any]) -> Dict[str, Any]:
                 flat[name] = val
     walk(tree["params"], "")
     return flat
+
+
+def _split_of(path: str) -> Optional[str]:
+    """The JAX package's rule (``vidgraph_tpu/models/vit.py::
+    param_shardings``) for a 2-D kernel at ``path``."""
+    if any(k in path for k in ("qkv", "fc1")):
+        return "cols"
+    if any(k in path for k in ("proj", "fc2")):
+        return "rows"
+    return None
+
+
+def param_shardings(params: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """Tensor-parallel placements of a Flax-format tree (``param_tree``),
+    leaf for leaf: qkv/fc1 kernels column-split, proj/fc2 kernels
+    row-split on "model", every other leaf replicated."""
+    def walk(node, prefix):
+        out = {}
+        for key, val in node.items():
+            path = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(val, Mapping):
+                out[key] = walk(val, path)
+                continue
+            split = _split_of(path) if val.dim() == 2 else None
+            out[key] = (placements(mesh, None, MODEL_AXIS)
+                        if split == "cols" else
+                        placements(mesh, MODEL_AXIS, None)
+                        if split == "rows" else placements(mesh))
+        return out
+    return walk(params, "")
+
+
+def _split_layers(tower: "VisionTower", group):
+    """(module, split, parts) for every Dense the model axis shards:
+    attention when it divides the heads, the MLP when it divides the
+    hidden width, the output projection when it divides the width."""
+    c = tower.cfg
+    heads_ok = tp.divides(c.heads, group)
+    for name, mod in tower.named_modules():
+        if not isinstance(mod, Dense):
+            continue
+        split = _split_of(name.replace(".", "/") + "/kernel")
+        if split is None:
+            continue
+        if name.endswith(("attn.qkv", "attn.proj")):
+            ok = heads_ok
+        elif name.endswith(("fc1", "fc2")):
+            ok = tp.divides(c.width * c.mlp_ratio, group)
+        else:
+            ok = tp.divides(c.width, group)
+        if ok:
+            yield mod, split, 3 if name.endswith("qkv") else 1
+
+
+def shard_tower(tower: "VisionTower", mesh) -> "VisionTower":
+    """Keep this rank's slices in the tower's tensor-parallel layers, in
+    place (new leaf parameters, ``requires_grad`` kept); returns it."""
+    group = axis_group(mesh, MODEL_AXIS)
+    if group is None:
+        return tower
+    for mod, split, parts in list(_split_layers(tower, group)):
+        with torch.no_grad():
+            if split == "cols":
+                kernel = tp.split_cols(mod.kernel, group, parts)
+                bias = tp.split_cols(mod.bias, group, parts)
+            else:
+                kernel = tp.split_rows(mod.kernel, group)
+                bias = mod.bias.detach().clone()
+        grad = mod.kernel.requires_grad
+        mod.kernel = nn.Parameter(kernel, requires_grad=grad)
+        mod.bias = nn.Parameter(bias, requires_grad=grad)
+        mod.split = split
+    return tower
+
+
+def gather_tower_tree(tower: "VisionTower", mesh) -> Dict[str, Any]:
+    """The whole Flax-format tree (``param_tree``) of a tower that
+    ``shard_tower`` split: every rank of the model axis gets it."""
+    group = axis_group(mesh, MODEL_AXIS)
+    whole = {}
+    for mod, split, parts in _split_layers(tower, group):
+        if mod.split is None:
+            continue
+        if split == "cols":
+            whole[mod] = (tp.gather_cols(mod.kernel, group, parts),
+                          tp.gather_cols(mod.bias, group, parts))
+        else:
+            whole[mod] = (tp.gather_rows(mod.kernel, group),
+                          mod.bias.detach())
+    tree = param_tree(tower)
+    for name, mod in tower.named_modules():
+        if mod in whole:
+            node = tree["params"]
+            for key in name.split("."):
+                node = node[key]
+            node["kernel"], node["bias"] = whole[mod]
+    return tree

@@ -1,2 +1,13 @@
-"""Multi-card plumbing of the port.  One card for now: the JAX package's
-meshes (``vidgraph_tpu/parallel/``) are ROADMAP slice 9."""
+"""Multi-device plumbing of the port on ``torch.distributed``: meshes,
+collectives, the row-sharded embedding search, tensor-parallel serving,
+expert and pipeline parallelism (counterparts of
+``vidgraph_tpu/parallel/``)."""
+from .mesh import (DATA_AXIS, MODEL_AXIS, build_mesh, data_sharded,
+                   host_cpu_mesh, model_sharded_cols, model_sharded_rows,
+                   replicated, single_device_mesh, use_mesh)
+
+__all__ = [
+    "DATA_AXIS", "MODEL_AXIS", "build_mesh", "data_sharded", "host_cpu_mesh",
+    "model_sharded_cols", "model_sharded_rows", "replicated",
+    "single_device_mesh", "use_mesh",
+]

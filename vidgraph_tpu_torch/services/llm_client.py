@@ -808,7 +808,7 @@ class TPUChatClient(ChatClient):
         from ..core.platform import device
         from ..models.captioner import (CaptionerConfig, init_params,
                                         serving_params)
-        from ..parallel.serving import serving_mesh
+        from ..parallel.serving import serving_mesh, shard_captioner_params
         self.device = device()
         # decode budget per completion (EOS stops early)
         self.MAX_NEW = max_new
@@ -833,7 +833,11 @@ class TPUChatClient(ChatClient):
                         self.MAX_NEW = int(meta["max_new"])
                 except (ValueError, OSError):
                     trained_seq = None
+        # tensor-parallel serving over the process-wide mesh when active
         self._mesh = serving_mesh()
+        if self._mesh is not None:
+            self.params = shard_captioner_params(self.params, self._mesh,
+                                                 heads=self.cfg.heads)
         # the matrices cast to the compute dtype once (same outputs)
         self._serve_params = serving_params(self.params, self.cfg)
         # byte budget for the prompt inside the LM context (never past the

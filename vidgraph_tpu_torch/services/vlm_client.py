@@ -108,10 +108,25 @@ class TPUVLMClient(VLMClient):
             self.vit.load_state_dict(state_dict_from_tree(loaded["vit"]))
             self.cap_params = loaded["cap"]
             logger.info("Loaded VLM weights from %s", checkpoint)
-        # Weight-only int8 serving, applied after the checkpoint load.  The
-        # JAX package ignores ``quantize`` under a tensor-parallel serving
-        # mesh; on one card ``serving_mesh()`` is None, so that branch has
-        # no counterpart until the mesh is ported (ROADMAP slice 9).
+        # Tensor-parallel serving: with a serving mesh active
+        # (parallel/serving.py) the tower and the captioner keep this
+        # rank's slices, and the tower and generate calls below run
+        # inside the mesh.
+        from ..parallel.serving import (serving_mesh, shard_captioner_params,
+                                        shard_vit_params)
+
+        self._mesh = serving_mesh()
+        if self._mesh is not None:
+            shard_vit_params(self.vit, self._mesh)
+            self.cap_params = shard_captioner_params(
+                self.cap_params, self._mesh, heads=self.cap_cfg.heads)
+        # Weight-only int8 serving, applied after the checkpoint load; a
+        # tensor-parallel mesh's slices are float, so it is ignored there,
+        # as in the JAX package.
+        if quantize and self._mesh is not None:
+            logger.warning("quantize=%s ignored: a tensor-parallel "
+                           "serving mesh is active", quantize)
+            quantize = None
         if quantize:
             import dataclasses
 
@@ -187,9 +202,12 @@ class TPUVLMClient(VLMClient):
         from ..ops.preprocess import preprocess_frames
 
         x = torch.from_numpy(np.ascontiguousarray(stack)).to(self.device)
+        from ..parallel.serving import maybe_mesh
+
         x = preprocess_frames(x, size=self.vit_cfg.image_size,
                               fast=self.fast_resize)
-        return self.vit(x)
+        with maybe_mesh(self._mesh):
+            return self.vit(x)
 
     def vision_prefixes(self, chunks: List[List[np.ndarray]],
                         emb: torch.Tensor) -> torch.Tensor:
@@ -207,11 +225,13 @@ class TPUVLMClient(VLMClient):
         every caption in one batched ``generate``."""
         from ..models import tokenizer
         from ..models.captioner import generate
+        from ..parallel.serving import maybe_mesh
 
         emb = self.embed_frames(self.host_frames(chunks))
         vis = self.vision_prefixes(chunks, emb)
-        toks = generate(self._serve_params, self.cap_cfg, vis,
-                        max_new=self.max_new).cpu().numpy()
+        with maybe_mesh(self._mesh):
+            toks = generate(self._serve_params, self.cap_cfg, vis,
+                            max_new=self.max_new).cpu().numpy()
         return [tokenizer.decode(toks[i]) for i in range(len(chunks))]
 
 

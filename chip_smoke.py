@@ -276,10 +276,36 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    stages at B 8 x T 128 (within ``PIPE_TOL`` of the sequential stack) and
    the MoE at the dry-run's sizes (within 1e-5).  Prints the world-1
    sharded search's ms beside the one-card store's, and the gloo ranks'
-   times as one card's, not a multi-card number.
+   times as one card's, not a multi-card number;
+23. ``stream`` and ``serve`` under the rank-0 leader
+   (``parallel/leader.py``) at phase 17's width (``backend.vlm: tpu``,
+   ViT-B/32 + ``base()`` from seed 0, the hash embed client, phase 17's
+   numpy frames), captions cut to ``LEADER_NEW_BYTES`` new bytes.  First
+   one card's references: phase 17's engine on 4 streams x
+   ``STREAM_SECONDS`` of 240 x 320 unpaced with its queries, and phase
+   18's server session with a fifth stream of ``LEADER_LONG_ROWS`` chunks
+   (past the first of its memory's two data shards) and 4 queries of it.
+   (1) NCCL at a world of one, ``mesh.enabled: true``: the
+   ``RankedEngine`` on the same streams between a reset and a read of the
+   launch counts (kernel 2 at least once a batch, 3a once a layer a
+   batch, kernel 1 for the queries, no plain version), its table equal to
+   one card's, every caption equal or a near-tie under
+   ``CAPTION_TIE_TOL`` (the first differing step printed), hits equal;
+   the session through ``RankedServer``, responses equal to one card's
+   (``same_hits``).  (2) Four gloo ranks on ``cuda:0``
+   (``run_ranks``, the kernels built before) on a (2 data, 2 model)
+   mesh: the same stream run (rank 0's table, captions and hits equal to
+   (1)'s; every follower's captions and memories equal rank 0's; kernels
+   2 and 3a on every rank, no plain version), a ``LEADER_PACED_SECONDS``
+   paced run (the followers hold what the leader kept), the session
+   (responses equal to (1)'s; kernel 1 on every rank's shard).  Prints
+   the steps and bytes broadcast, the leader's ms a message and a
+   follower's wait, an 8-stream step's broadcast timed alone, query p50
+   and p95 under load, and request p50 by route; the gloo numbers are one
+   card's, not a multi-card time.
 
-``--phases 14,15,16,17,18,19,20,21,22`` runs only the named phases of
-14-22 (with the build): a partial run prints no kernels record and no
+``--phases 14,15,16,17,18,19,20,21,22,23`` runs only the named phases of
+14-23 (with the build): a partial run prints no kernels record and no
 ``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
@@ -2535,39 +2561,53 @@ def caption_tokens(vlm, chunks) -> tuple:
                     max_new=vlm.max_new), vis
 
 
-def batch_vs_single(vlm, chunks) -> dict:
-    """The batch of 8 chunks' captions against each chunk's own B = 1
-    caption: equal, or the first differing byte a near-tie of the B = 1
-    context's logits (teacher-forced ``forward`` on its own bytes)."""
+def caption_gap(vlm, vis, a: np.ndarray, b: np.ndarray):
+    """None where the token rows ``a`` (``vlm``'s own, from the vision
+    prefix ``vis`` [nv, d]) and ``b`` are equal; else the first step where
+    they differ and the gap there between the two bytes' logits of ``a``'s
+    context (teacher-forced ``forward`` on its own bytes)."""
     from vidgraph_tpu_torch.models import tokenizer
     from vidgraph_tpu_torch.models.captioner import forward
 
+    diff = np.nonzero(a != b)[0]
+    if not len(diff):
+        return None
+    s = int(diff[0])
+    ctx = torch.from_numpy(np.concatenate(
+        [[tokenizer.BOS_ID], a[:s]]).astype(np.int64))[None].to(vis.device)
+    with torch.no_grad():
+        logits = forward(vlm._serve_params, vlm.cap_cfg, vis[None], ctx)[0, -1]
+    top2 = torch.topk(logits, 2).values
+    return {"first_differing_step": s, "ref_byte": int(a[s]),
+            "got_byte": int(b[s]),
+            "logit_gap": float(logits[int(a[s])] - logits[int(b[s])]),
+            "top2_gap": float(top2[0] - top2[1])}
+
+
+def assert_near_tie(where: str, gap: dict) -> None:
+    log(f"{where} differ first at step {gap['first_differing_step']}: "
+        f"{json.dumps(gap)}")
+    assert abs(gap["logit_gap"]) < CAPTION_TIE_TOL, \
+        f"{where}: the bytes differ with a logit gap {gap['logit_gap']} " \
+        f"(not a near-tie under {CAPTION_TIE_TOL})"
+
+
+def batch_vs_single(vlm, chunks) -> dict:
+    """The batch of 8 chunks' captions against each chunk's own B = 1
+    caption: equal, or the first differing byte a near-tie of the B = 1
+    context's logits (``ref_byte`` B = 1's, ``got_byte`` the batch's)."""
     toks8, _ = caption_tokens(vlm, chunks)
     rows = []
     for i, chunk in enumerate(chunks):
         toks1, vis1 = caption_tokens(vlm, [chunk])
-        a, b = toks1[0].cpu().numpy(), toks8[i].cpu().numpy()
-        diff = np.nonzero(a != b)[0]
-        if not len(diff):
+        gap = caption_gap(vlm, vis1[0], toks1[0].cpu().numpy(),
+                          toks8[i].cpu().numpy())
+        if gap is None:
             rows.append({"equal": True})
             continue
-        s = int(diff[0])
-        ctx = torch.from_numpy(np.concatenate(
-            [[tokenizer.BOS_ID], a[:s]]).astype(np.int64))[None] \
-            .to(vis1.device)
-        with torch.no_grad():
-            logits = forward(vlm._serve_params, vlm.cap_cfg, vis1, ctx)[0, -1]
-        gap = float(logits[int(a[s])] - logits[int(b[s])])
-        top2 = torch.topk(logits, 2).values
-        rows.append({"equal": False, "first_differing_step": s,
-                     "b1_byte": int(a[s]), "b8_byte": int(b[s]),
-                     "logit_gap": gap,
-                     "top2_gap": float(top2[0] - top2[1])})
-        log(f"phase 17: chunk {i}: the batch of 8 and B = 1 differ first at "
-            f"step {s}: {json.dumps(rows[-1])}")
-        assert abs(gap) < CAPTION_TIE_TOL, \
-            f"chunk {i}: the bytes differ at step {s} with a logit gap " \
-            f"{gap} (not a near-tie under {CAPTION_TIE_TOL})"
+        rows.append({"equal": False, **gap})
+        assert_near_tie(f"phase 17: chunk {i}: the batch of 8 and B = 1",
+                        gap)
     return {"chunks": len(chunks), "equal": sum(r["equal"] for r in rows),
             "differing": [r for r in rows if not r["equal"]]}
 
@@ -2703,10 +2743,12 @@ async def _http(port: int, method: str, path: str, body=None):
     return int(head.split(b" ")[1]), json.loads(data), ms
 
 
-def serve_requests(seed: int) -> list:
+def serve_requests(seed: int, long_rows: int = 0) -> list:
     """The session's requests: ``SERVE_CHUNKS`` ingests over
     ``SERVE_STREAMS`` streams, ``SERVE_QUERIES`` queries, four retrieves
-    on the bench graph, the stats."""
+    on the bench graph, the stats; with ``long_rows``, before the
+    retrieves, that many ingests into a stream ``cam_long`` and four
+    queries of it."""
     import bench
 
     rng = random.Random(seed)
@@ -2725,6 +2767,16 @@ def serve_requests(seed: int) -> list:
             "stream": f"cam{i % SERVE_STREAMS}", "k": 3,
             "query": f"where is the {rng.choice(bench._COLORS)} "
                      f"{rng.choice(bench._OBJECTS)}"}))
+    for i in range(long_rows):
+        reqs.append(("POST", "/v1/ingest", {
+            "stream": "cam_long", "chunk_id": f"cam_long_{i}",
+            "content": f"chunk {i}: a {rng.choice(bench._COLORS)} "
+                       f"{rng.choice(bench._OBJECTS)}"}))
+    for i in range(4 if long_rows else 0):
+        reqs.append(("POST", "/v1/query", {
+            "stream": "cam_long", "k": 3,
+            "query": f"a {rng.choice(bench._COLORS)} "
+                     f"{rng.choice(bench._OBJECTS)}"}))
     for i in range(4):
         reqs.append(("POST", "/v1/retrieve", {
             "graph_uuid": "bench", "query": f"What color is the "
@@ -2733,20 +2785,16 @@ def serve_requests(seed: int) -> list:
     return reqs
 
 
-def serve_session(device: str, seed: int, tmp: Path) -> list:
-    """``VideoMemoryServer`` on ``device`` on an ephemeral port, with the
-    bench graph built, exported and imported under uuid ``bench``; every
-    request of ``serve_requests`` over HTTP, in order."""
+def bench_graph_config(root: Path):
+    """A config whose graph store holds the bench graph (built, exported
+    and imported under uuid ``bench`` into ``root/gs``)."""
     import bench
     from vidgraph_tpu_torch.core.config import PipelineConfig
     from vidgraph_tpu_torch.graph.embedded import EmbeddedGraphStore
     from vidgraph_tpu_torch.graph.exporter import (GraphExporter,
                                                    GraphImporter)
     from vidgraph_tpu_torch.services.embed_client import make_embed_client
-    from vidgraph_tpu_torch.services.server import VideoMemoryServer
 
-    os.environ["VIDGRAPH_TORCH_DEVICE"] = device
-    root = tmp / device
     src = EmbeddedGraphStore("bench_src", persist_dir=None, persist=False)
     bench._build_graph(src, make_embed_client("tpu", dim=512),
                        random.Random(42))
@@ -2755,17 +2803,32 @@ def serve_session(device: str, seed: int, tmp: Path) -> list:
         uuid, persist_dir=str(root / "gs"))).import_graph(export, "bench")
     cfg = PipelineConfig()
     cfg.graph_store.persist_dir = str(root / "gs")
+    return cfg
 
+
+def http_session(server, reqs) -> list:
+    """Start ``server`` on its port, send ``reqs`` over HTTP in order,
+    stop it; the responses."""
     async def run():
-        server = VideoMemoryServer(cfg, port=0)
         await server.start()
         try:
-            return [await _http(server.port, m, p, b)
-                    for m, p, b in serve_requests(seed)]
+            return [await _http(server.port, m, p, b) for m, p, b in reqs]
         finally:
             await server.stop()
+    return asyncio.run(run())
+
+
+def serve_session(device: str, seed: int, tmp: Path) -> list:
+    """``VideoMemoryServer`` on ``device`` on an ephemeral port, with the
+    bench graph built, exported and imported under uuid ``bench``; every
+    request of ``serve_requests`` over HTTP, in order."""
+    from vidgraph_tpu_torch.services.server import VideoMemoryServer
+
+    os.environ["VIDGRAPH_TORCH_DEVICE"] = device
     try:
-        return asyncio.run(run())
+        cfg = bench_graph_config(tmp / device)
+        return http_session(VideoMemoryServer(cfg, port=0),
+                            serve_requests(seed))
     finally:
         os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
 
@@ -2787,20 +2850,15 @@ def same_hits(got: list, ref: list) -> bool:
     return groups(got) == groups(ref)
 
 
-def phase_serve(tc, seed: int, card: str) -> dict:
-    """The HTTP service on the card: ingest, query, retrieve and stats
-    through ``VideoMemoryServer``, then the same session on the CPU."""
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        tc.reset_counts()
-        cuda = serve_session("cuda", seed, tmp)
-        launches = launch_counts(tc)
-        cpu = serve_session("cpu", seed, tmp)
-    reqs = serve_requests(seed)
-    assert all(code == 200 for code, _, _ in cuda), \
-        [c for c in cuda if c[0] != 200][:3]
+def session_diffs(reqs, got, ref) -> list:
+    """The routes of ``reqs`` whose responses in ``got`` differ from
+    ``ref``'s: query hits by ``same_hits``, retrieved texts, the rest
+    whole.  Every response of ``got`` must be a 200 with ``ok``, with the
+    keys of ``ref``'s, and every hit its own stream's."""
+    assert all(code == 200 for code, _, _ in got), \
+        [c for c in got if c[0] != 200][:3]
     diffs = []
-    for (m, path, body), (_, g, _), (_, r, _) in zip(reqs, cuda, cpu):
+    for (_m, path, body), (_, g, _), (_, r, _) in zip(reqs, got, ref):
         assert g.get("ok") and set(g) == set(r), (path, g, r)
         if path == "/v1/query":
             ok = same_hits(g["chunks"], r["chunks"])
@@ -2813,6 +2871,20 @@ def phase_serve(tc, seed: int, card: str) -> dict:
             ok = g == r
         if not ok:
             diffs.append(path)
+    return diffs
+
+
+def phase_serve(tc, seed: int, card: str) -> dict:
+    """The HTTP service on the card: ingest, query, retrieve and stats
+    through ``VideoMemoryServer``, then the same session on the CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tc.reset_counts()
+        cuda = serve_session("cuda", seed, tmp)
+        launches = launch_counts(tc)
+        cpu = serve_session("cpu", seed, tmp)
+    reqs = serve_requests(seed)
+    diffs = session_diffs(reqs, cuda, cpu)
     assert not diffs, f"responses differ from the CPU run's: {diffs}"
     assert launches["score_topk"] >= SERVE_QUERIES and \
         launches["plain"] == 0, launches
@@ -3723,8 +3795,378 @@ def chat_texts(cfg, params, enabled: bool) -> list:
     return client.complete_batch_sync(RAGGED_PROMPTS, max_tokens=64)
 
 
+# ----------------------------------------------------------------- phase 23
+LEADER_RANKS = 4
+LEADER_STREAMS = 4
+# phase 23's captions are 32 new bytes, not the client's 256: four gloo
+# ranks share the card and stage each of a decode step's 16 all-reduces
+# over "model" through the host, ~9 ms each in phase 22, so 256
+# bytes would take ~37 s a batch
+LEADER_NEW_BYTES = 32
+LEADER_PACED_SECONDS = 2.0
+# a server stream grown past the first of its memory's two data shards
+# (capacity 1024, 512 rows a shard): its queries launch kernel 1 on every
+# rank, where the other memories' rows all lie in the first shard
+LEADER_LONG_ROWS = 520
+# the broadcast timed alone: an 8-stream step, 8 chunks of 5 frames
+LEADER_STEP_CHUNKS = 8
+
+
+def record_captions(vlm) -> list:
+    """``vlm.caption_batch_sync`` wrapped to keep each batch's tokens
+    (numpy) and vision prefixes; returns the list they go to."""
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.models.captioner import generate
+    from vidgraph_tpu_torch.parallel.serving import maybe_mesh
+
+    batches = []
+
+    def caption_batch_sync(chunks):
+        emb = vlm.embed_frames(vlm.host_frames(chunks))
+        vis = vlm.vision_prefixes(chunks, emb)
+        with maybe_mesh(vlm._mesh):
+            toks = generate(vlm._serve_params, vlm.cap_cfg, vis,
+                            max_new=vlm.max_new).cpu().numpy()
+        batches.append({"tokens": toks, "vis": vis})
+        return [tokenizer.decode(t) for t in toks]
+    vlm.caption_batch_sync = caption_batch_sync
+    return batches
+
+
+def leader_clients(mod):
+    """Phase 17's clients (``backend.vlm: tpu``, ViT-B/32 + ``base()``
+    from seed 0; the hash embed client) under the serving policy as it is
+    configured, captions cut to ``LEADER_NEW_BYTES``; and the list of
+    their caption batches."""
+    vlm, embed = mod.serving_clients()
+    vlm.max_new = LEADER_NEW_BYTES
+    return vlm, embed, record_captions(vlm)
+
+
+def leader_stream(mod, vlm, embed, banks, seed: int, channel,
+                  seconds: float, realtime: bool):
+    """``mod.run`` of a ``RankedEngine`` over ``len(banks)`` streams:
+    rank 0 leads a session and returns (engine, summary); a follower
+    follows it and returns (engine, None)."""
+    from vidgraph_tpu_torch.parallel.leader import (RankedEngine,
+                                                    follow_stream, session)
+
+    if channel.leader:
+        with session(channel):
+            return mod.run(len(banks), vlm, embed, seconds,
+                           realtime=realtime, seed=seed, banks=banks,
+                           engine_cls=RankedEngine, channel=channel)
+    engine = mod.make_engine(len(banks), vlm, embed,
+                             engine_cls=RankedEngine, channel=channel)
+    asyncio.run(follow_stream(engine))
+    return engine, None
+
+
+def leader_serve(channel, cfg, reqs):
+    """``reqs`` through a ``RankedServer``: rank 0 serves them over HTTP
+    and returns the responses; a follower follows and returns None."""
+    from vidgraph_tpu_torch.parallel.leader import (RankedServer,
+                                                    follow_server)
+
+    server = RankedServer(cfg, port=0, channel=channel)
+    if channel.leader:
+        return http_session(server, reqs)
+    asyncio.run(follow_server(server))
+    return None
+
+
+def held(engine) -> dict:
+    """Each stream's captions and memory ids."""
+    return {"captions": {sid: {cid: c["content"] for cid, c in caps.items()}
+                         for sid, caps in engine.captions.items()},
+            "memory": {sid: m.ids() for sid, m in engine.memories.items()}}
+
+
+def stream_launches(tc) -> dict:
+    counts = {**vision_counts(),
+              **{f"cosine_{k}": v for k, v in tc.LAUNCHES.items()}}
+    counts["plain"] += tc.REF_CALLS
+    return counts
+
+
+TABLE_KEYS = ("chunks_done", "queries_served", "total_shed_chunks",
+              "total_dropped_frames", "batches")
+
+
+def leader_table(out: dict, engine) -> dict:
+    """A stream run's numbers that must not move between worlds, its
+    timings, and its answers' hits (stream, query, chunks)."""
+    return {"table": {k: out[k] for k in TABLE_KEYS},
+            "timings": {k: out[k] for k in (
+                "query_under_load_p50_ms", "query_under_load_p95_ms",
+                "query_p50_ms", "query_p95_ms", "chunk_latency_p50_ms",
+                "wall_seconds", "realtime_factor")},
+            "answers": [(a["stream"], a["query"], a["chunks"])
+                        for a in engine.answers]}
+
+
+def step_broadcast_ms(channel, banks, reps: int = 5) -> dict:
+    """An 8-stream step's frames (``LEADER_STEP_CHUNKS`` chunks of 5
+    frames of 240 x 320) sent by ``ControlChannel.send`` and received by
+    ``recv`` on every follower, as a heartbeat (no step runs): the median
+    ms of ``reps`` after one, on each rank."""
+    from vidgraph_tpu_torch.parallel.leader import HEARTBEAT
+
+    offsets = np.linspace(0, 29, 5).astype(int)
+    frames = [np.ascontiguousarray(banks[i % len(banks)][offsets])
+              for i in range(LEADER_STEP_CHUNKS)]
+    times = []
+    for _ in range(reps + 1):
+        t = time.perf_counter()
+        if channel.leader:
+            channel.send(HEARTBEAT, {}, frames)
+        else:
+            _, _, got = channel.recv()
+            assert len(got) == LEADER_STEP_CHUNKS
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"bytes": sum(f.nbytes for f in frames),
+            "ms": statistics.median(times[1:])}
+
+
+def leader_rank(seed: int, graph_dir: str) -> dict:
+    """One rank of phase 23's gloo world (4 ranks on ``cuda:0``, a (2
+    data, 2 model) serving mesh): a first call, the 4-stream run, the
+    paced run, the server session, each led by rank 0 on a control
+    channel of its own; then a step's broadcast timed alone."""
+    from vidgraph_tpu_torch.core.config import PipelineConfig
+    from vidgraph_tpu_torch.ops import topk_cosine as tc
+    from vidgraph_tpu_torch.parallel import mesh as pm
+    from vidgraph_tpu_torch.parallel import serving
+    from vidgraph_tpu_torch.parallel.leader import ControlChannel
+
+    sys.modules["tiktoken"] = None
+    serving.configure(enabled=True, model_axis=2)
+    mod = load_script("measure_torch_stream_scaling")
+    vlm, embed, batches = leader_clients(mod)
+    shape = {a: pm.axis_size(vlm._mesh, a) for a in ("data", "model")}
+    assert shape == {"data": 2, "model": 2}, shape
+    banks = [mod.frame_bank(i, seed) for i in range(LEADER_STREAMS)]
+    out = {"mesh": shape}
+    t = time.perf_counter()
+    leader_stream(mod, vlm, embed, banks, seed, ControlChannel(), 1.0,
+                  False)                                    # first calls
+    out["first_call_s"] = time.perf_counter() - t
+    batches.clear()
+    torch.cuda.synchronize()
+    reset_vision_counts()
+    tc.reset_counts()
+    channel = ControlChannel()
+    out["rank"], lead = channel.rank, channel.leader
+    engine, summary = leader_stream(mod, vlm, embed, banks, seed, channel,
+                                    STREAM_SECONDS, False)
+    torch.cuda.synchronize()
+    out.update(stream_counts=stream_launches(tc), stream=held(engine),
+               stream_channel=channel.summary(),
+               batch_sizes=engine.batch_sizes)
+    if lead:
+        out.update(leader_table(summary, engine),
+                   tokens=[b["tokens"] for b in batches])
+    channel = ControlChannel()
+    engine, summary = leader_stream(mod, vlm, embed, banks, seed, channel,
+                                    LEADER_PACED_SECONDS, True)
+    out["paced"] = {"held": held(engine), "channel": channel.summary(),
+                    **(leader_table(summary, engine) if lead else {})}
+    cfg = PipelineConfig()
+    cfg.graph_store.persist_dir = graph_dir
+    tc.reset_counts()
+    channel = ControlChannel()
+    t = time.perf_counter()
+    session = leader_serve(channel, cfg, serve_requests(seed,
+                                                        LEADER_LONG_ROWS))
+    out.update(serve_s=time.perf_counter() - t,
+               serve_counts=launch_counts(tc),
+               serve_channel=channel.summary(),
+               **({"session": session} if lead else {}))
+    out["step_broadcast"] = step_broadcast_ms(channel, banks)
+    return out
+
+
+def caption_ties(where: str, ref_vlm, ref_batches, got_tokens) -> list:
+    """Every caption row of ``got_tokens`` (a run's batches) against the
+    one-card reference's batches: equal, or a near-tie of the reference's
+    logits (printed, asserted under ``CAPTION_TIE_TOL``)."""
+    assert len(got_tokens) == len(ref_batches), \
+        (where, len(got_tokens), len(ref_batches))
+    ties = []
+    for k, (ref, got) in enumerate(zip(ref_batches, got_tokens)):
+        assert got.shape == ref["tokens"].shape, (where, k, got.shape)
+        for i in range(len(got)):
+            gap = caption_gap(ref_vlm, ref["vis"][i], ref["tokens"][i],
+                              got[i])
+            if gap is not None:
+                assert_near_tie(f"{where}: batch {k} row {i} and one card",
+                                gap)
+                ties.append({"batch": k, "row": i, **gap})
+    return ties
+
+
+def same_answers(got: list, ref: list) -> bool:
+    """Query answers equal: stream, query and hits (``same_hits``)."""
+    return len(got) == len(ref) and all(
+        gs == rs and gq == rq and same_hits(gh, rh)
+        for (gs, gq, gh), (rs, rq, rh) in zip(got, ref))
+
+
+def check_stream_launches(where: str, counts: dict, batches: int,
+                          layers: int, topk: bool = True) -> None:
+    """Kernel 2 at least once a caption batch, 3a once a layer a batch,
+    kernel 1 for the queries (``topk``), no plain version."""
+    assert counts["preprocess"] >= batches, (where, counts)
+    assert counts["flash"] == layers * batches, (where, counts)
+    assert not topk or counts["cosine_score_topk"] > 0, (where, counts)
+    assert counts["cosine_merge"] == counts["cosine_score_topk"], \
+        (where, counts)
+    assert counts["plain"] == 0, f"{where}: a plain version served {counts}"
+
+
+def phase_leader(tc, seed: int, card: str) -> dict:
+    """Phase 23: ``stream`` and ``serve`` under the rank-0 leader on the
+    one card, against one card's engine and server."""
+    import torch.distributed as dist
+
+    from vidgraph_tpu_torch.parallel import mesh as pm
+    from vidgraph_tpu_torch.parallel import serving
+    from vidgraph_tpu_torch.parallel.launch import run_ranks
+    from vidgraph_tpu_torch.parallel.leader import ControlChannel
+    from vidgraph_tpu_torch.services.server import VideoMemoryServer
+
+    t_phase = time.perf_counter()
+    mod = load_script("measure_torch_stream_scaling")
+    banks = [mod.frame_bank(i, seed) for i in range(LEADER_STREAMS)]
+    reqs = serve_requests(seed, LEADER_LONG_ROWS)
+    res = {"new_bytes": LEADER_NEW_BYTES, "requests": len(reqs)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- one card: phase 17's engine, phase 18's server (+ cam_long)
+        serving.configure(enabled=False)
+        cfg = bench_graph_config(tmp)
+        ref_vlm, embed, ref_batches = leader_clients(mod)
+        mod.run(LEADER_STREAMS, ref_vlm, embed, 1.0, realtime=False,
+                seed=seed, with_queries=False, banks=banks)  # first calls
+        ref_batches.clear()
+        ref_engine, ref_out = mod.run(LEADER_STREAMS, ref_vlm, embed,
+                                      STREAM_SECONDS, realtime=False,
+                                      seed=seed, banks=banks)
+        ref = {**leader_table(ref_out, ref_engine), **held(ref_engine)}
+        ref_session = http_session(VideoMemoryServer(cfg, port=0), reqs)
+        # ---- (1) NCCL, a world of one, mesh.enabled: true ---------------
+        serving.configure(enabled=True, model_axis=1)
+        serving.serving_mesh()
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        vlm, embed1, batches = leader_clients(mod)
+        assert vlm._mesh is not None
+        leader_stream(mod, vlm, embed1, banks, seed, ControlChannel(), 1.0,
+                      False)                                # first calls
+        batches.clear()
+        torch.cuda.synchronize()
+        reset_vision_counts()
+        tc.reset_counts()
+        channel = ControlChannel()
+        engine, out = leader_stream(mod, vlm, embed1, banks, seed, channel,
+                                    STREAM_SECONDS, False)
+        torch.cuda.synchronize()
+        counts = stream_launches(tc)
+        one = {**leader_table(out, engine), **held(engine)}
+        n_batches = one["table"]["batches"]
+        check_stream_launches("phase 23 (1)", counts, n_batches,
+                              vlm.cap_cfg.layers)
+        assert one["table"] == ref["table"], (one["table"], ref["table"])
+        ties = caption_ties("phase 23 (1)", ref_vlm, ref_batches,
+                            [b["tokens"] for b in batches])
+        assert ties or (one["captions"] == ref["captions"]
+                        and same_answers(one["answers"], ref["answers"]))
+        assert one["memory"] == ref["memory"]
+        tc.reset_counts()
+        server_channel = ControlChannel()
+        session1 = leader_serve(server_channel, cfg, reqs)
+        serve_counts = launch_counts(tc)
+        diffs = session_diffs(reqs, session1, ref_session)
+        assert not diffs, f"the ranked server differs from one card: {diffs}"
+        assert serve_counts["score_topk"] >= SERVE_QUERIES and \
+            serve_counts["plain"] == 0, serve_counts
+        res["nccl_world_1"] = {
+            "launches": counts, "serve_launches": serve_counts,
+            "table": one["table"], "timings": one["timings"],
+            "one_card_timings": ref["timings"], "ties": ties,
+            "channel": channel.summary(),
+            "serve_channel": server_channel.summary(),
+            "request_p50_ms": route_p50(reqs, session1),
+            "one_card_request_p50_ms": route_p50(reqs, ref_session)}
+        log(f"phase 23 (1): NCCL world 1 on {card}: {json.dumps(res)}")
+        serving.configure(enabled="auto", model_axis=1)
+        pm.shutdown()
+        # ---- (2) gloo, 4 ranks on cuda:0, (2 data, 2 model) ---------------
+        t0 = time.perf_counter()
+        ranks = run_ranks("chip_smoke:leader_rank", LEADER_RANKS,
+                          (seed, cfg.graph_store.persist_dir),
+                          backend="gloo", device="cuda:0", timeout_s=300.0,
+                          deadline_s=600.0, threads=2)
+        wall = time.perf_counter() - t0
+    lead = ranks[0]
+    assert lead["rank"] == 0
+    assert lead["table"] == one["table"], (lead["table"], one["table"])
+    gloo_ties = caption_ties("phase 23 (2)", ref_vlm, ref_batches,
+                             lead["tokens"])
+    assert gloo_ties or (lead["stream"]["captions"] == one["captions"]
+                         and same_answers(lead["answers"], one["answers"]))
+    assert lead["stream"]["memory"] == one["memory"]
+    diffs = session_diffs(reqs, lead["session"], session1)
+    assert not diffs, f"the 4-rank server differs from world 1's: {diffs}"
+    assert lead["paced"]["table"]["chunks_done"] > 0, lead["paced"]
+    for r in ranks:
+        # every follower ran every step: what the leader holds, it holds
+        assert r["stream"] == lead["stream"], r["rank"]
+        assert r["paced"]["held"] == lead["paced"]["held"], r["rank"]
+        check_stream_launches(f"phase 23 (2) rank {r['rank']}",
+                              r["stream_counts"], n_batches,
+                              vlm.cap_cfg.layers, topk=False)
+        c = r["serve_counts"]
+        assert c["score_topk"] > 0 and c["merge"] > 0 and \
+            c["plain"] == 0, (r["rank"], c)
+    res["gloo_4_ranks_on_one_card"] = {
+        "note": "one card, not a multi-card number", "wall_s": wall,
+        "table": lead["table"], "timings": lead["timings"],
+        "paced": {k: lead["paced"][k] for k in ("table", "timings")},
+        "ties": gloo_ties, "first_call_s": lead["first_call_s"],
+        "stream_launches": [r["stream_counts"] for r in ranks],
+        "serve_launches": [r["serve_counts"] for r in ranks],
+        "stream_channel": [r["stream_channel"] for r in ranks],
+        "paced_channel": [r["paced"]["channel"] for r in ranks],
+        "serve_channel": [r["serve_channel"] for r in ranks],
+        "serve_s": lead["serve_s"],
+        "request_p50_ms": route_p50(reqs, lead["session"]),
+        "step_broadcast": [r["step_broadcast"] for r in ranks]}
+    res["launches"] = {
+        "preprocess": counts["preprocess"] + sum(
+            r["stream_counts"]["preprocess"] for r in ranks),
+        "flash": counts["flash"] + sum(r["stream_counts"]["flash"]
+                                       for r in ranks),
+        **{k: counts[f"cosine_{k}"] + serve_counts[k] + sum(
+            r["stream_counts"][f"cosine_{k}"] + r["serve_counts"][k]
+            for r in ranks) for k in ("score_topk", "merge")}}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 23: stream and serve under the rank-0 leader on {card} "
+        f"(NCCL world 1; gloo {LEADER_RANKS} ranks on one card, not a "
+        f"multi-card number): {json.dumps(res)}")
+    return res
+
+
+def route_p50(reqs, session) -> dict:
+    """Median request ms by route."""
+    by_route = {}
+    for (_, path, _), (_, _, ms) in zip(reqs, session):
+        by_route.setdefault(path, []).append(ms)
+    return {path: statistics.median(v) for path, v in by_route.items()}
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
-                  quant, bwd, training, streams, tooling, mesh) -> dict:
+                  quant, bwd, training, streams, tooling, mesh,
+                  leader) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -3751,6 +4193,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                  for key in ("score_topk", "merge")}
     mesh_flash = (mesh["chat"]["launches"]["flash"]
                   + sum(c["flash"] for c in gloo["chat_launches"]))
+    # phase 23's: the streams and servers under the rank-0 leader, NCCL
+    # world 1 and every gloo rank
+    led = leader["launches"]
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
@@ -3770,9 +4215,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "source": src, "replaces": replaces,
          "launches": (launches["score_topk"]
                       + sweep["topk_launches"]["score_topk"]
-                      + mesh_topk["score_topk"]),
+                      + mesh_topk["score_topk"] + led["score_topk"]),
          "sweep_epoch_launches": sweep["topk_launches"]["score_topk"],
          "mesh_launches": mesh_topk["score_topk"],
+         "leader_launches": led["score_topk"],
          "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
          "ms": stages["score_topk_b16_k5"]["kernel_ms"],
          "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
@@ -3790,9 +4236,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "cosine_topk_merge", "route": "cuda", "source": src,
          "replaces": replaces,
          "launches": (launches["merge"] + sweep["topk_launches"]["merge"]
-                      + mesh_topk["merge"]),
+                      + mesh_topk["merge"] + led["merge"]),
          "sweep_epoch_launches": sweep["topk_launches"]["merge"],
          "mesh_launches": mesh_topk["merge"],
+         "leader_launches": led["merge"],
          "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
          "ms": stages["merge_b16_k5"]["kernel_ms"],
          "plain_ms": stages["merge_b16_k5"]["plain_ms"],
@@ -3813,9 +4260,11 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "launches": (chat["kg"]["flash"] + chat["benchmark"]["flash"]
                       + sum(c["flash"] for c in vision_counts)
                       + inst["flash_fwd"] + mid["flash_fwd"]
-                      + judge["flash_launches"] + mesh_flash),
+                      + judge["flash_launches"] + mesh_flash
+                      + led["flash"]),
          "judge_agreement_launches": judge["flash_launches"],
          "mesh_launches": mesh_flash,
+         "leader_launches": led["flash"],
          "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
          "lse_max_abs_err": max(r["lse_err"] for r in bwd_rows.values()),
          "train_ms": brow["fwd_lse_ms"],
@@ -3845,7 +4294,9 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
              "launches": vit160["launches"]["preprocess"],
              **vit160["kernels"]["preprocess"]},
          "launches": (sum(c["preprocess"] for c in vision_counts)
-                      + vit160["launches"]["preprocess"]),
+                      + vit160["launches"]["preprocess"]
+                      + led["preprocess"]),
+         "leader_launches": led["preprocess"],
          "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
          "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
          "library_ms": pre5["library_ms"], "call_ms": pre5["call_ms"],
@@ -3929,7 +4380,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-22 "
+                    help="development: run only these of phases 14-23 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3967,9 +4418,10 @@ def main() -> int:
             19: lambda: phase_encoders(args.seed, card),
             20: lambda: phase_encoder_trainers(args.seed, card),
             21: lambda: phase_tooling(args.seed, card),
-            22: lambda: phase_mesh(tc, args.seed, card)}
+            22: lambda: phase_mesh(tc, args.seed, card),
+            23: lambda: phase_leader(tc, args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 22")
+        ap.error("--phases takes 14 to 23")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -4005,10 +4457,12 @@ def main() -> int:
     log(f"phases 1-21 done at {time.perf_counter() - t0:.1f} s")
     mesh = late[22]()
     log(f"phases 1-22 done at {time.perf_counter() - t0:.1f} s")
+    leader = late[23]()
+    log(f"phases 1-23 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training, streams, tooling,
-                           mesh)
+                           mesh, leader)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -4022,7 +4476,7 @@ def main() -> int:
         "tooling": {k: v for k, v in tooling.items() if k != "vit_b160"},
         "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
                      if k != "profile"},
-        "mesh": mesh,
+        "mesh": mesh, "leader": leader,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

@@ -107,16 +107,19 @@ def queries(n: int, seconds: float):
     return out
 
 
-def make_engine(n: int, vlm, embed, kg_extractor=None):
-    """The engine over ``n`` streams, its ``_caption_chunks`` wrapped to
+def make_engine(n: int, vlm, embed, kg_extractor=None, engine_cls=None,
+                **engine_kw):
+    """The engine over ``n`` streams (a ``RealtimeEngine``, or
+    ``engine_cls`` with ``engine_kw``), its ``_caption_chunks`` wrapped to
     record each batch's size (``batch_sizes``), its ``query`` to keep each
     answer (``answers``) and the host clock when it was ready
     (``answered_at``, by the answer's ``id``), and its ``submit_query`` to
     keep each submitted query's future in order (``submitted``)."""
     from vidgraph_tpu_torch.streams import RealtimeEngine
 
-    engine = RealtimeEngine(specs(n), embed_client=embed, vlm_client=vlm,
-                            kg_extractor=kg_extractor)
+    engine = (engine_cls or RealtimeEngine)(
+        specs(n), embed_client=embed, vlm_client=vlm,
+        kg_extractor=kg_extractor, **engine_kw)
     engine.batch_sizes, engine.answers, engine.submitted = [], [], []
     engine.answered_at = {}
     caption, query = engine._caption_chunks, engine.query
@@ -164,7 +167,7 @@ def p50_p95(xs: List[float]):
 
 def run(n: int, vlm, embed, seconds: float, realtime: bool, seed: int = 0,
         with_queries: bool = True, kg_extractor=None,
-        banks: Optional[List[np.ndarray]] = None):
+        banks: Optional[List[np.ndarray]] = None, **engine_kw):
     """One ``simulate`` over ``n`` streams; returns (engine, summary) with
     the summary's coverage, batch counts and the queries' waits from
     arrival to answer (``query_waits_ms`` in submission order, and their
@@ -177,11 +180,11 @@ def run(n: int, vlm, embed, seconds: float, realtime: bool, seed: int = 0,
     ``simulate`` itself would jump over the queries of the video it skips
     when behind the wall clock; its last ``process_ready`` comes after the
     wall clock has passed the video's end, so every query is answered in
-    the run."""
+    the run.  ``engine_kw`` go to ``make_engine``."""
     from vidgraph_tpu_torch.streams import simulate
 
     banks = banks or [frame_bank(i, seed) for i in range(n)]
-    engine = make_engine(n, vlm, embed, kg_extractor)
+    engine = make_engine(n, vlm, embed, kg_extractor, **engine_kw)
     asked = queries(n, seconds) if with_queries else []
     pending = sorted(asked) if realtime else []
     t0 = time.perf_counter()

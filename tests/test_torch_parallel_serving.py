@@ -9,10 +9,12 @@ numpy leaves for the chat LM of the JAX test's config).  Criteria: the
 policy off / on / auto, the config load, hybrid retrieval through the
 mesh equal to one device, the caption and the chat decode token-equal to
 the JAX package's (tensor-parallel and single-device), stream memories
-row-sharded at a world of one, and the stream engine refused at a world
-of two.
+row-sharded at a world of one, and ``kg``, ``batch-retrieve`` and
+``stream`` through the CLI on two ranks: rank 0 alone writes and prints,
+and its ``stream`` JSON equals a world of one's.
 """
 import json
+import socket
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,6 +27,8 @@ from vidgraph_tpu.models.captioner import init_params as jinit
 from vidgraph_tpu.parallel import serving as jserving
 from vidgraph_tpu.services.llm_client import TPUChatClient as JChat
 from vidgraph_tpu.services.vlm_client import TPUVLMClient as JVLM
+from torch_leader_cases import persist_graph
+from vidgraph_tpu_torch.io.video import write_synthetic_video
 from vidgraph_tpu_torch.parallel.launch import run_ranks
 
 TESTS = str(Path(__file__).parent)
@@ -37,6 +41,16 @@ kg: {batch_size: 2}
 retrieval: {entity_first: false}
 graph_store: {persist_dir: gs}
 """
+STREAM_YAML = KG_YAML + "video: {chunk_size_seconds: 1.0, frames_per_chunk: 3}\n"
+SERVE_REQUESTS = [
+    ("POST", "/v1/ingest", {"stream": "cam0", "chunk_id": "cam0_0",
+                            "content": "a red beaker on the bench"}),
+    ("POST", "/v1/query", {"stream": "cam0", "query": "red beaker"}),
+    ("POST", "/v1/retrieve", {"graph_uuid": "srv",
+                              "query": "who holds the beaker?"}),
+    ("GET", "/v1/stats", None)]
+TIMING_KEYS = {"chunk_latency_p50_ms", "query_p50_ms", "query_p95_ms",
+               "wall_seconds", "aggregate_fps", "realtime_factor"}
 
 
 def _jax_side(tmp: Path) -> dict:
@@ -64,6 +78,10 @@ def _jax_side(tmp: Path) -> dict:
         work = tmp / "cli"
         work.mkdir()
         (work / "kg.yaml").write_text(KG_YAML)
+        (work / "stream.yaml").write_text(STREAM_YAML)
+        video = write_synthetic_video(str(tmp / "v.mp4"),
+                                      ["red", "blue", "green"],
+                                      seconds_per_scene=1.0, fps=5)
         (tmp / "queries.json").write_text(json.dumps(
             [{"query": "What color is the shape?", "groundtruth": "red"},
              {"query": "Where is the blue object?", "groundtruth": ""}]))
@@ -71,10 +89,20 @@ def _jax_side(tmp: Path) -> dict:
                          "workdir": str(work),
                          "kg_config": str(work / "kg.yaml"),
                          "vlm_output": str(GOLDEN_VLM),
-                         "queries": str(tmp / "queries.json")}
+                         "queries": str(tmp / "queries.json"),
+                         "stream_config": str(work / "stream.yaml"),
+                         "video": video, "serve_port": _free_port(),
+                         "graph_src": persist_graph(str(tmp / "graph")),
+                         "serve_requests": SERVE_REQUESTS}
     finally:
         jserving.configure(enabled="auto", model_axis=1)
     return out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _numpy(tree):
@@ -91,7 +119,7 @@ def runs(tmp_path_factory):
     two = run_ranks("torch_parallel_cases:serving_cases", 2,
                     (jax_side["inputs"],), pythonpath=[TESTS])
     one = run_ranks("torch_parallel_cases:world_one_cases", 1,
-                    pythonpath=[TESTS])[0]
+                    (jax_side["inputs"],), pythonpath=[TESTS])[0]
     return jax_side, two, one
 
 
@@ -148,12 +176,25 @@ def test_realtime_engine_memories_sharded_at_world_one(runs):
     assert one["memory"] == "ShardedEmbeddingStore"
 
 
+def _stream_json(stdout: str) -> dict:
+    line, = [ln for ln in stdout.splitlines()
+             if ln.startswith("Stream run completed: ")]
+    return json.loads(line.split(": ", 1)[1])
+
+
+def _untimed(x):
+    if isinstance(x, dict):
+        return {k: _untimed(v) for k, v in x.items() if k not in TIMING_KEYS}
+    return x
+
+
 def test_cli_kg_across_ranks_writes_once_and_refuses_stream_and_serve(runs):
     """``kg`` on two ranks: rank 0 prints the UUID and persists one graph,
     the follower prints nothing and writes nothing beside it; then
     ``batch-retrieve`` of that graph (the follower reads a copy) writes
-    one results file and one metrics file; ``serve`` and ``stream`` raise
-    on both ranks, naming the queued leader."""
+    one results file and one metrics file.  ``stream``, no longer refused
+    across ranks, runs under the rank-0 leader: rank 0 prints one JSON,
+    equal to a world of one's but for timings, the follower nothing."""
     lead, follower = (rank["cli"] for rank in runs[1])
     uuid = lead["stdout"].split("UUID: ")[1].split()[0]
     assert follower["stdout"] == ""
@@ -168,6 +209,24 @@ def test_cli_kg_across_ranks_writes_once_and_refuses_stream_and_serve(runs):
     assert lead["metrics"] and all(uuid in m for m in lead["metrics"])
     assert sum(m.startswith("retrieval_times_")
                for m in lead["metrics"]) == 1
-    for rank in (lead, follower):
-        assert len(rank["refused"]) == 2
-        assert all(e and "rank-0 leader" in e for e in rank["refused"])
+    # stream: one JSON on rank 0, equal to a world of one's
+    assert follower["stream_stdout"] == ""
+    got, one = (_stream_json(lead["stream_stdout"]),
+                _stream_json(runs[2]["stream_stdout"]))
+    assert lead["stream_stdout"].count("Stream run completed") == 1
+    assert _untimed(got) == _untimed(one)
+    assert got["queries_served"] == 2
+    assert all(s["chunks_done"] == 3 for s in got["streams"].values())
+    # serve: rank 0 answers until interrupted; its STOP ends the follower,
+    # which read the graph rank 0 persisted after the server started
+    lead_serve, follower_serve = lead["serve"], follower["serve"]
+    assert lead_serve["interrupted"] and not follower_serve["interrupted"]
+    assert follower_serve["rc"] == 0 and follower_serve["stdout"] == ""
+    assert follower_serve["responses"] == []
+    codes = [code for code, _ in lead_serve["responses"]]
+    assert codes == [200] * len(SERVE_REQUESTS)
+    _, hits = lead_serve["responses"][1]
+    assert [c["id"] for c in hits["chunks"]] == ["cam0_0"]
+    _, retrieved = lead_serve["responses"][2]
+    assert retrieved["retrieval"].startswith("Found results")
+    assert "person holds a beaker" in retrieved["retrieval"]

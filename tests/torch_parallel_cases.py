@@ -189,7 +189,8 @@ def serving_cases(inputs):
 
 def cli_cases(inputs):
     """``kg`` through the CLI on every rank: rank 0 alone prints the UUID
-    and persists the graph; ``stream`` and ``serve`` are refused."""
+    and persists the graph; ``stream`` on every rank: rank 0 alone prints
+    its JSON."""
     import contextlib
     import io
     import os
@@ -204,8 +205,7 @@ def cli_cases(inputs):
         main(["kg", "--config", inputs["kg_config"], "--vlm-output",
               inputs["vlm_output"]])
     dist.barrier()
-    out = {"stdout": buf.getvalue(), "graphs": sorted(os.listdir("gs")),
-           "refused": []}
+    out = {"stdout": buf.getvalue(), "graphs": sorted(os.listdir("gs"))}
     # batch-retrieve on rank 0's graph: the follower reads a copy of it
     uuid = [out["stdout"].split("UUID: ")[1].split()[0]
             if dist.get_rank() == 0 else None]
@@ -219,20 +219,93 @@ def cli_cases(inputs):
     out["retrieve_stdout"] = buf.getvalue()
     out["written"] = sorted(p for p in os.listdir(".") if p != "gs")
     out["metrics"] = os.listdir("metrics")
-    for argv in (["serve", "--config", inputs["kg_config"]],
-                 ["stream", "--config", inputs["kg_config"], "--videos",
-                  "v.mp4"]):
-        try:
-            main(argv)
-            out["refused"].append(None)
-        except NotImplementedError as e:
-            out["refused"].append(str(e))
+    out["stream_stdout"] = stream_cli(inputs)
+    out["serve"] = serve_cli(inputs)
     return out
 
 
-def world_one_cases():
+def serve_cli(inputs) -> dict:
+    """``serve`` through the CLI on every rank.  On rank 0 a client thread
+    waits for the port, persists a graph into rank 0's graph directory
+    (after the server started), ingests, queries and retrieves that graph,
+    then interrupts the server (SIGINT): the leader's ``STOP`` ends the
+    follower's ``serve``, which returns."""
+    import asyncio
+    import contextlib
+    import io
+    import json
+    import os
+    import shutil
+    import signal
+    import socket
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    from vidgraph_tpu_torch.cli.main import main
+
+    port, responses = inputs["serve_port"], []
+
+    async def request(method, path, body=None):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        payload = json.dumps(body).encode() if body is not None else b""
+        writer.write((f"{method} {path} HTTP/1.1\r\nContent-Length: "
+                      f"{len(payload)}\r\nConnection: close\r\n\r\n"
+                      ).encode() + payload)
+        await writer.drain()
+        head, _, data = (await reader.read()).partition(b"\r\n\r\n")
+        writer.close()
+        return int(head.split(b" ")[1]), json.loads(data)
+
+    def client():
+        try:
+            for _ in range(600):
+                with contextlib.suppress(OSError), \
+                        socket.create_connection(("127.0.0.1", port)):
+                    break
+                time.sleep(0.1)
+            for f in os.listdir(inputs["graph_src"]):
+                shutil.copy(os.path.join(inputs["graph_src"], f), "gs")
+            for req in inputs["serve_requests"]:
+                responses.append(asyncio.run(request(*req)))
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)
+
+    out = {"interrupted": False}
+    if dist.get_rank() == 0:
+        threading.Thread(target=client, daemon=True).start()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out["rc"] = main(["serve", "--config", inputs["kg_config"],
+                              "--port", str(port)])
+    except KeyboardInterrupt:
+        out["interrupted"] = True
+    out.update(stdout=buf.getvalue(), responses=responses)
+    return out
+
+
+def stream_cli(inputs) -> str:
+    """What ``stream`` through the CLI prints on this rank: two streams of
+    one video, a query to each."""
+    import contextlib
+    import io
+
+    from vidgraph_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["stream", "--config", inputs["stream_config"], "--videos",
+              inputs["video"], inputs["video"], "--fps", "5", "--query",
+              "1.5:0:a red shape", "--query", "2.5:1:a blue shape"])
+    return buf.getvalue()
+
+
+def world_one_cases(inputs):
     """At a world of one: ``enabled: true`` starts a world-1 group, the
-    stream engine's memories are row-sharded stores."""
+    stream engine's memories are row-sharded stores; ``stream`` through
+    the CLI (no mesh at a world of one under ``auto``)."""
     import torch.distributed as dist
 
     from vidgraph_tpu_torch.parallel import serving
@@ -247,9 +320,12 @@ def world_one_cases():
     eng = RealtimeEngine([StreamSpec("s0", fps=2.0, frames_per_chunk=2,
                                      height=24, width=32)],
                          make_embed_client("hash", dim=32))
-    return {"before": before, "world": dist.get_world_size(),
-            "shape": tuple(mesh.shape),
-            "memory": type(eng.memories["s0"]).__name__}
+    out = {"before": before, "world": dist.get_world_size(),
+           "shape": tuple(mesh.shape),
+           "memory": type(eng.memories["s0"]).__name__}
+    serving.configure(enabled="auto", model_axis=1)
+    out["stream_stdout"] = stream_cli(inputs)
+    return out
 
 
 # ------------------------------------------------------------------ training

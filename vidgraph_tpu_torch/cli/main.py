@@ -16,7 +16,10 @@ reference README documented ``graph`` while the parser registered ``vlm``),
 average times.
 
 ``main`` is the port's own in one respect: under ``torchrun`` every rank
-runs the command and only rank 0 writes its files (``cli/ranks.py``).
+runs the command and only rank 0 writes its files (``cli/ranks.py``);
+``stream`` and ``serve`` at a world of more than one rank are led by rank
+0, which broadcasts each engine step and request to the followers
+(``parallel/leader.py``).
 """
 from __future__ import annotations
 
@@ -310,6 +313,7 @@ def parse_true_chunks_args(parts: Optional[List[str]]
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from ..parallel.mesh import world_size
     from .ranks import rank_scope
 
     parser = build_parser()
@@ -357,15 +361,27 @@ def main(argv: Optional[List[str]] = None) -> int:
             result = prune_export_file(args.input, args.output, args.threshold)
             print(f"Graph pruning completed: {result}")
         elif args.command == "stream":
-            result = asyncio.run(run_streams(args))
-            print(f"Stream run completed: {json.dumps(result)}")
+            from ..parallel import leader
+
+            result = asyncio.run(leader.run_ranked_streams(args)
+                                 if world_size() > 1 else run_streams(args))
+            if result is not None:
+                print(f"Stream run completed: {json.dumps(result)}")
         elif args.command == "serve":
+            from ..parallel import leader
             from ..services.server import VideoMemoryServer
 
             config = PipelineConfig.from_yaml(args.config)
-            server = VideoMemoryServer(config, host=args.host, port=args.port)
+            if getattr(args, "persist_dir", None):
+                config.graph_store.persist_dir = args.persist_dir
             print(f"Serving video-memory API on {args.host}:{args.port}")
-            asyncio.run(server.serve_forever())
+            if world_size() > 1:
+                asyncio.run(leader.serve_ranked(config, args.host,
+                                                args.port))
+            else:
+                server = VideoMemoryServer(config, host=args.host,
+                                           port=args.port)
+                asyncio.run(server.serve_forever())
         else:
             parser.print_help()
             return 1

@@ -12,8 +12,13 @@ directory (the graphs rank 0 persisted before), and its standard output
 is dropped.  The directory is removed when the command ends.  The graph
 store's ``persist_dir`` must be relative, as every shipped config has it.
 
-``stream`` and ``serve`` are request-driven and raise at a world of more
-than one rank (``parallel/serving.py::require_one_rank``).
+``stream`` and ``serve`` are driven by frames, queries and requests that
+reach rank 0 only: rank 0 leads and broadcasts each engine step or
+request, the followers run them (``parallel/leader.py``).  A ``serve``
+follower copies no graph store: ``args.persist_dir`` names rank 0's, which
+it reads, so that ``/v1/retrieve`` finds a graph persisted after the
+server started on every rank.  ``--videos`` is not resolved: a follower
+opens no video.
 """
 from __future__ import annotations
 
@@ -39,10 +44,6 @@ def follower() -> bool:
 def rank_scope(args) -> Iterator[None]:
     """Run the block as the command of this rank (see the module's
     docstring); a no-op on rank 0 and at a world of one."""
-    from ..parallel.serving import require_one_rank
-
-    if args.command in ("stream", "serve"):
-        require_one_rank(f"the CLI's {args.command}")
     if not follower():
         yield
         return
@@ -61,7 +62,9 @@ def rank_scope(args) -> Iterator[None]:
     if persist.is_absolute():
         raise ValueError(f"graph_store.persist_dir {persist} is absolute: "
                          "under torchrun every rank would write it")
-    if (home / persist).is_dir():
+    if args.command == "serve":
+        args.persist_dir = str(home / persist)
+    elif (home / persist).is_dir():
         shutil.copytree(home / persist, private / persist)
     os.chdir(private)
     try:

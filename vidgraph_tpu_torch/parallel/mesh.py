@@ -38,6 +38,7 @@ MODEL_AXIS = "model"
 #: seconds a collective may wait before the group fails it
 DEFAULT_TIMEOUT_S = 600.0
 
+_TIMEOUT_S = DEFAULT_TIMEOUT_S
 _MESHES: Dict[tuple, DeviceMesh] = {}
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("vidgraph_mesh",
                                                          default=None)
@@ -94,10 +95,18 @@ def init_group(backend: Optional[str] = None, *, rank: Optional[int] = None,
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
     kw = {"device_id": dev} if backend == "nccl" else {}
+    global _TIMEOUT_S
+    _TIMEOUT_S = timeout_s
     dist.init_process_group(backend, rank=rank, world_size=world_size,
                             timeout=timedelta(seconds=timeout_s),
                             **rendezvous, **kw)
     return backend
+
+
+def group_timeout_s() -> float:
+    """Seconds a collective of the default group may wait (``init_group``'s
+    ``timeout_s``)."""
+    return _TIMEOUT_S
 
 
 def shutdown() -> None:

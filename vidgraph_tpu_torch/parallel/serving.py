@@ -15,6 +15,11 @@ Counterpart of ``vidgraph_tpu/parallel/serving.py``: a process-wide
 * ``serving_mesh()`` — the active mesh or None; ``maybe_mesh()`` enters
   it.
 
+Request-driven serving (the CLI's ``stream`` and ``serve``) at a world of
+more than one rank runs under a rank-0 leader that broadcasts each engine
+step and request (``parallel/leader.py``), so that every rank's searches
+and decodes pair up.
+
 Policy (``mesh.enabled`` in the YAML config tree), as in the JAX package,
 read for SPMD, where a process sees one device and the world is the ranks
 of the default process group:
@@ -135,19 +140,3 @@ def maybe_mesh(mesh=None) -> Iterator[Any]:
     with use_mesh(mesh):
         yield mesh
 
-
-def require_one_rank(what: str) -> None:
-    """Raise where request-driven serving (``what``) would run at a world
-    of more than one rank: each rank would answer its own requests, and
-    the collectives of the first search or decode would pair unrelated
-    calls.  Such serving needs a rank-0 leader that broadcasts every
-    request to follower ranks (ROADMAP, queue 1, "stream and serve across
-    ranks")."""
-    from .mesh import world_size
-
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what} at a world of {world_size()} ranks: request-driven "
-            "serving needs a rank-0 leader with follower ranks (ROADMAP "
-            "queue 1, 'stream and serve across ranks'); run it at a world "
-            "of one")

@@ -67,8 +67,8 @@ Run from the root of a checkout.  Phases, each failing the run on error:
 11. the vision path (``backend.vlm: tpu``) at full width:
    ``ViTConfig.b32()`` and ``CaptionerConfig.base()`` with seed weights
    written as a JAX-format npz and loaded through ``vlm.checkpoint_path``
-   (``preprocess: device``, ``fast_resize: true``, 256 new bytes).  The
-   card's machine has no cv2, so the frame seam is replaced: in
+   (``preprocess: device``, ``fast_resize: true``, 256 new bytes).  No
+   video is decoded on the card's machine, so the frame seam is replaced: in
    ``vidgraph_tpu_torch.pipeline.vlm_extractor``'s namespace only,
    ``iter_chunk_frames`` and ``count_chunks`` become a numpy source of 6
    chunks of 5 RGB uint8 frames at 405 x 720, drawn as
@@ -167,9 +167,13 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    ``ViTConfig.b32()`` + ``CaptionerConfig.base()`` width, B 8, 3 steps on
    one batch: the loss falls;
 16. ACS, the device sweep as torch ops (``pipeline/acs.py``, no kernel of
-   its own): on ``bench.py``'s ``barabasi_albert_graph(926, 2, seed=0)``,
+   its own): on ``bench.py``'s ``barabasi_albert_graph(926, 2, seed=0)``
+   (the edge list of ``tests/torch_jax_draws.json``), ``_louvain`` with
+   the port's masks (JAX's stream) gives the JAX package's labels and
+   community count, its modularity within ``LOUVAIN_Q_TOL``;
    ``update_metrics`` under ``acs.backend: auto`` takes the device sweep
-   and returns no ``error``; every metric but Louvain's equals exact
+   and returns no ``error`` and JAX's Louvain count and rounded
+   modularity; every other metric equals exact
    NetworkX (the port's ``networkx`` backend with sampling off) within
    ``tests/test_acs.py``'s tolerances, the others within
    ``ACS_OTHER_TOL``.  Then ms of a full metric pass (``_compute``, the
@@ -271,8 +275,10 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    on ``cuda:0`` (``parallel/launch.py``; the kernels are built before
    they start): the store split 4 ways (ids equal to one card's, kernel 1
    launched on every rank), the chat decode at ``chat()`` width over
-   ``model_axis=2``, 16 new bytes (texts equal to one card's, the flash
-   kernel once a layer on every rank), ``base()`` blocks over 2 pipeline
+   ``model_axis=2``, 16 new bytes (every byte equal to one card's, or
+   at the first differing step a near-tie of one card's teacher-forced
+   logits under ``CAPTION_TIE_TOL``; the flash kernel once a layer on
+   every rank), ``base()`` blocks over 2 pipeline
    stages at B 8 x T 128 (within ``PIPE_TOL`` of the sequential stack) and
    the MoE at the dry-run's sizes (within 1e-5).  Prints the world-1
    sharded search's ms beside the one-card store's, and the gloo ranks'
@@ -303,9 +309,26 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    follower's wait, an 8-stream step's broadcast timed alone, query p50
    and p95 under load, and request p50 by route; the gloo numbers are one
    card's, not a multi-card time.
+24. seeded draws: ``core/prng.py`` on the card against the JAX package's
+   ``jax.random`` on the CPU, from ``tests/torch_jax_draws.json``
+   (``tests/make_torch_jax_draws.py``): threefry bits and a
+   Bernoulli(0.5) mask equal, normals and truncated normals within
+   ``SEEDED_ULP`` (the bit-equal share printed), and ViT-B/32 +
+   ``CaptionerConfig.base()`` from seed 0 leaf by leaf (shape, float64
+   sum and sum of squares within what ``SEEDED_ULP`` allows, the first 16
+   values within it; bit-equal leaves counted by hash), with the trees'
+   draw time on the card (cold and warm) beside the host ``torch.randn``
+   draw the port made before.  Then the CLI's ``vlm`` at the shipped
+   config (no checkpoint: the weights from seed 0) on ``SEEDED_CHUNKS``
+   of ``synthetic_chunks``' frames between a reset and a read of the
+   launch counts (kernel 2 once a chunk, 3a once a layer a chunk, no
+   plain version), and its captions beside the JAX package's at the same
+   seed on the CPU: equal rows, and each other row's logit gap at its
+   first differing byte.  The captions are reported, not gated: with
+   random weights near-ties are common.
 
-``--phases 14,15,16,17,18,19,20,21,22,23`` runs only the named phases of
-14-23 (with the build): a partial run prints no kernels record and no
+``--phases 14,15,16,17,18,19,20,21,22,23,24`` runs only the named phases
+of 14-24 (with the build): a partial run prints no kernels record and no
 ``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
@@ -330,7 +353,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import dataclasses
+import hashlib
 import itertools
 import json
 import math
@@ -395,9 +420,13 @@ MIDSCALE_LOSS_TOL = 0.01
 # phase 16: the metrics tests/test_acs.py does not name, device sweep vs
 # exact NetworkX (both exact; rounded to 4 decimals)
 ACS_OTHER_TOL = 1e-3
+# phase 16: Louvain's modularity on the card against the JAX package's on
+# the CPU (integer sums until one float32 division, the same masks)
+LOUVAIN_Q_TOL = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet): memory, bf16 and float32 dense
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 MESH_RANKS = 4
+CUDA = torch.device("cuda")
 # phase 22: base() blocks through 2 pipeline stages against the sequential
 # stack, bf16 compute (the same products in the same order on one card)
 PIPE_TOL = 2e-3
@@ -971,6 +1000,15 @@ _PLANTED = {"\n": "v", "v": "i", "i": "e", "e": "w", "w": "|", "|": " ",
             " ": "d", "d": "a", "a": "r", "r": "k", "k": "|"}
 
 
+def on_host(tree):
+    """A parameter tree (dicts and lists of tensors) moved to the host."""
+    if isinstance(tree, dict):
+        return {k: on_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [on_host(v) for v in tree]
+    return tree.cpu()
+
+
 def plant_bigram(params: dict) -> dict:
     """Seed weights with a byte bigram planted, so that extraction writes
     a parseable, grounded triplet after a prompt's final newline and
@@ -1015,7 +1053,7 @@ def phase_chat_lm(seed: int) -> dict:
         (tmp / "block").mkdir()
         (tmp / "block" / "tiktoken.py").write_text(_TIKTOKEN_BLOCK)
         ckpt, planted = tmp / "instruct_lm.npz", tmp / "planted_lm.npz"
-        params = init_params(cfg, torch.Generator().manual_seed(seed))
+        params = on_host(init_params(cfg, seed, device=CUDA))
         save_params(params, str(ckpt))
         save_params(plant_bigram(params), str(planted))
         llm_cfg = chat_config(tmp, "tpu_llm_config.yaml", ckpt)
@@ -1108,8 +1146,7 @@ def phase_prefill_logits(seed: int) -> dict:
                                                      prefill_logits)
 
     cfg = CaptionerConfig.chat()
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=torch.device("cuda"))
+    params = init_params(cfg, seed, device=CUDA)
     golden = json.loads((ROOT / "tests/golden/vlm_output_golden.json")
                         .read_text())["results"]
     prompts = [f"TEXT TO ANALYSE:\n{it['content'] * (1 + 3 * i)}\n\n"
@@ -1412,9 +1449,8 @@ def phase_vision(seed: int, card: str) -> dict:
         lambda path, secs, per_chunk, *a: synthetic_chunks(
             VISION_CHUNKS, per_chunk, secs))
     vlm_extractor.count_chunks = lambda path, secs: VISION_CHUNKS
-    gen = torch.Generator().manual_seed(seed)
-    tower = init_vision_tower(ViTConfig.b32(), gen)
-    cap = init_params(CaptionerConfig.base(), gen)
+    tower = init_vision_tower(ViTConfig.b32(), seed, device=CUDA)
+    cap = init_params(CaptionerConfig.base(), seed, device=CUDA)
     n_layers_vit, n_layers_cap = tower.cfg.layers, CaptionerConfig.base().layers
     old_cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1714,7 +1750,6 @@ def phase_quantized(seed: int, card: str) -> dict:
     import profile_torch_int8_decode as p8
 
     large = CaptionerConfig.large()
-    gen = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed + 6)
     chunks = [c for _, _, c in synthetic_chunks(QUANT_CHUNKS, VISION_FRAMES,
                                                 5.0)]
@@ -1724,8 +1759,9 @@ def phase_quantized(seed: int, card: str) -> dict:
         os.chdir(tmp)
         try:
             t0 = time.perf_counter()
-            tower = init_vision_tower(ViTConfig.b32(), gen)
-            cap = init_params(large, gen, param_dtype=torch.bfloat16)
+            tower = init_vision_tower(ViTConfig.b32(), seed, device=CUDA)
+            cap = init_params(large, seed, param_dtype=torch.bfloat16,
+                              device=CUDA)
             ckpt = save_params({"vit": param_tree(tower), "cap": cap},
                                str(tmp / "vlm_large.npz"))
             del tower, cap
@@ -2194,8 +2230,7 @@ def phase_train_instruct(seed: int, card: str, tmp: Path) -> dict:
 
     # the first batch from the seed weights: kernels against einsum + remat
     cfg = CaptionerConfig.chat()
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=torch.device("cuda"), requires_grad=True)
+    params = init_params(cfg, seed, device=CUDA, requires_grad=True)
     toks, plens = (torch.as_tensor(a, device="cuda")
                    for a in rec["first_batch"])
     def loss_of(remat, flash):
@@ -2254,8 +2289,7 @@ def midscale_grad_check(mod, seed: int, corpus: str) -> dict:
     from vidgraph_tpu_torch.models.captioner import init_params
 
     cfg = mod.mid_config(1024)
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=torch.device("cuda"), requires_grad=True)
+    params = init_params(cfg, seed, device=CUDA, requires_grad=True)
     captions = [r["content"] for r in json.loads(Path(corpus).read_text())[
         "results"] if r.get("content")]
     toks = mod.pack_corpus(captions, 1024, random.Random(seed))
@@ -2326,7 +2360,7 @@ def phase_train_state(seed: int, card: str) -> dict:
 
     state = TrainState.create(
         ViTConfig.b32(), CaptionerConfig.base(), torch.device("cuda"),
-        learning_rate=3e-4, generator=torch.Generator().manual_seed(seed))
+        learning_rate=3e-4, seed=seed)
     rng = np.random.default_rng(seed + 15)
     images = rng.standard_normal((8, 224, 224, 3), dtype=np.float32)
     tokens = batch_encode(["The scene shows a red object on a dark "
@@ -2386,15 +2420,61 @@ def acs_ms(acs, names, adj, backend: str, reps: int = 3) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def jax_draws() -> dict:
+    """``tests/torch_jax_draws.json``: the JAX package's seeded draws,
+    Louvain run and weight statistics (``tests/make_torch_jax_draws.py``)."""
+    return json.loads((ROOT / "tests" / "torch_jax_draws.json").read_text())
+
+
+def fixture_graph(rec: dict):
+    """The fixture's graph, its nodes 0..n-1 in order (``networkx`` on the
+    card may draw another Barabasi-Albert graph from the same seed)."""
+    import networkx as nx
+
+    graph = nx.Graph()
+    graph.add_nodes_from(range(rec["nodes"]))
+    graph.add_edges_from(map(tuple, rec["edges"]))
+    return graph
+
+
+def louvain_vs_jax(graph, rec: dict) -> dict:
+    """``_louvain`` on the card, with the port's own masks, on the fixture's
+    graph padded as the sweep pads it: labels and community count equal to
+    JAX's, modularity within ``LOUVAIN_Q_TOL``."""
+    import networkx as nx
+
+    from vidgraph_tpu_torch.pipeline import acs as tacs
+
+    adj = nx.to_numpy_array(graph, nodelist=range(rec["nodes"]))
+    a, valid = tacs._padded(adj.astype(np.float32))
+    assert a.shape[0] == rec["pad"], a.shape
+    with tacs._full_f32():
+        labels, q, k = tacs._louvain(a, valid)
+    labels = labels.cpu().numpy()
+    same = int((labels == np.asarray(rec["labels"])).sum())
+    res = {"communities": int(k), "jax_communities": rec["communities"],
+           "modularity": float(q), "jax_modularity": rec["modularity"],
+           "q_gap": abs(float(q) - rec["modularity"]),
+           "labels_equal": same, "nodes_padded": len(labels),
+           "device": str(a.device)}
+    assert same == len(labels), f"Louvain labels differ from JAX's: {res}"
+    assert int(k) == rec["communities"], res
+    assert res["q_gap"] <= LOUVAIN_Q_TOL, res
+    return res
+
+
 def phase_acs(card: str) -> dict:
     """The ACS device sweep on the card against exact NetworkX on
-    bench.py's 926-node graph, then both backends' times by graph size."""
+    bench.py's 926-node graph (taken from the fixture), Louvain against
+    the JAX package's on it, then both backends' times by graph size."""
     import networkx as nx
 
     from vidgraph_tpu_torch.core.config import ACSConfig
     from vidgraph_tpu_torch.pipeline import acs as tacs
 
-    graph = nx.barabasi_albert_graph(926, 2, seed=0)
+    ref = jax_draws()["louvain"]
+    graph = fixture_graph(ref)
+    louvain = louvain_vs_jax(graph, ref)
     store = GraphOf(graph)
     calls = []
     real = tacs._acs_fused
@@ -2410,6 +2490,8 @@ def phase_acs(card: str) -> dict:
     finally:
         tacs._acs_fused = real
     assert "error" not in dev and calls == [1024], (dev, calls)
+    assert dev["louvain_communities"] == ref["communities"], dev
+    assert dev["louvain_modularity"] == round(ref["modularity"], 4), dev
     exact = tacs.ACSAutomata(store, ACSConfig(
         backend="networkx", exact_efficiency_max_nodes=10 ** 6,
         betweenness_k=10 ** 6)).update_metrics()
@@ -2435,12 +2517,14 @@ def phase_acs(card: str) -> dict:
                           "networkx_ms": acs_ms(acs, names, adj,
                                                 "networkx", reps=1)}
     res = {"metrics_device": dev, "metrics_networkx_exact": exact,
-           "gaps": gaps, "acs_full_metrics_ms_926n":
+           "gaps": gaps, "louvain_vs_jax": louvain,
+           "acs_full_metrics_ms_926n":
            times["926n"]["device_ms"], "times": times,
            "auto_min_nodes": tacs._AUTO_XLA_MIN_NODES}
     log(f"phase 16: ACS device sweep on {card} equals exact NetworkX on the "
-        f"926-node graph (Louvain aside); ms by graph size: "
-        f"{json.dumps(res)}")
+        f"926-node graph (Louvain aside), and its Louvain the JAX package's "
+        f"(labels, {louvain['communities']} communities, Q gap "
+        f"{louvain['q_gap']:.3g}); ms by graph size: {json.dumps(res)}")
     return res
 
 
@@ -3334,8 +3418,7 @@ def vit_b160_kernels(seed: int) -> dict:
         "timed": "160 frames 720x1280 uint8 -> 224 bf16 (fast)"}}
     del ref
     cfg = dataclasses.replace(ViTConfig.b32(), attn_impl="fused")
-    tower = init_vision_tower(cfg, torch.Generator().manual_seed(seed),
-                              device="cuda").eval()
+    tower = init_vision_tower(cfg, seed, device=CUDA).eval()
     seen = {}
     hook = tower.block_0.attn.register_forward_pre_hook(
         lambda mod, args: seen.setdefault("x", args[0]))
@@ -3490,8 +3573,7 @@ def phase_tooling(seed: int, card: str) -> dict:
         # (c) the judge agreement on that epoch's retrieval results
         cfg = CaptionerConfig.chat()
         ckpt = tmp / "instruct_lm.npz"
-        save_params(init_params(cfg, torch.Generator().manual_seed(seed)),
-                    str(ckpt))
+        save_params(init_params(cfg, seed, device=CUDA), str(ckpt))
         judge_cfg = chat_config(tmp, "judge_tpu_config.yaml", ckpt)
         agree = load_script("run_torch_judge_agreement")
         fa.reset_counts()
@@ -3552,6 +3634,7 @@ def mesh_rank(seed: int) -> dict:
     references."""
     import torch.distributed as dist
 
+    from vidgraph_tpu_torch.core import prng
     from vidgraph_tpu_torch.memory.embedding_store import EmbeddingStore
     from vidgraph_tpu_torch.models.captioner import (CaptionerConfig, _block,
                                                      init_params)
@@ -3599,15 +3682,14 @@ def mesh_rank(seed: int) -> dict:
     torch.cuda.empty_cache()
     # (b) the chat decode at chat() width over model_axis=2
     cfg = CaptionerConfig.chat()
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=torch.device("cuda:0"))
+    params = init_params(cfg, seed, device=torch.device("cuda:0"))
     serving.configure(enabled=True, model_axis=2)
     client = TPUChatClient(cfg=cfg, params=params, max_new=16, max_batch=4)
     assert pm.axis_size(client._mesh, "model") == 2
     assert client.params["blocks"][0]["qkv_w"].shape[1] == 3 * cfg.width // 2
     fa.reset_counts()
     t0 = time.perf_counter()
-    texts = client.complete_batch_sync(RAGGED_PROMPTS, max_tokens=16)
+    texts, rows = chat_rows(client, RAGGED_PROMPTS, 16)
     torch.cuda.synchronize()
     out["chat_ms"] = (time.perf_counter() - t0) * 1e3
     out["chat_counts"] = {"flash": fa.LAUNCHES["flash_fwd"],
@@ -3615,18 +3697,19 @@ def mesh_rank(seed: int) -> dict:
     serving.configure(enabled=False)
     if lead:
         one = TPUChatClient(cfg=cfg, params=params, max_new=16, max_batch=4)
-        out["chat_equal"] = one.complete_batch_sync(
-            RAGGED_PROMPTS, max_tokens=16) == texts
+        one_texts, one_rows = chat_rows(one, RAGGED_PROMPTS, 16)
+        out["chat_equal"] = one_texts == texts
+        out["chat_ties"] = [
+            {"row": r, **gap} for r, prompt in enumerate(RAGGED_PROMPTS)
+            if (gap := chat_gap(one, prompt, 16, one_rows[r], rows[r]))]
     out["chat_texts"] = texts
     del client, params
     torch.cuda.empty_cache()
     # (c) base() blocks over 2 pipeline stages, B 8, T 128, bf16
     base = CaptionerConfig.base()
-    bp = init_params(base, torch.Generator().manual_seed(seed + 1),
-                     device=torch.device("cuda:0"))
-    x = torch.randn((8, 128, base.width),
-                    generator=torch.Generator().manual_seed(seed + 2)
-                    ).cuda()
+    bp = init_params(base, seed + 1, device=torch.device("cuda:0"))
+    x = prng.normal(prng.PRNGKey(seed + 2), (8, 128, base.width),
+                    device=torch.device("cuda:0"))
     idx = torch.arange(128, device="cuda")
     mask = torch.where(idx[None, :] <= idx[:, None], 0.0, -1e30)
     pipe = pm.mesh_of(torch.arange(MESH_RANKS).reshape(-1, 2),
@@ -3646,10 +3729,10 @@ def mesh_rank(seed: int) -> dict:
     # (d) the MoE at the dry-run's sizes, 4 experts over 4 ranks
     ep = pm.mesh_of(torch.arange(MESH_RANKS).reshape(1, -1),
                     ("rep", "expert"))
-    moe = {k: v.cuda() for k, v in init_moe_params(
-        torch.Generator().manual_seed(seed), 32, 64, MESH_RANKS).items()}
-    xe = torch.randn((2, 8, 32),
-                     generator=torch.Generator().manual_seed(seed + 3)).cuda()
+    moe = init_moe_params(prng.PRNGKey(seed), 32, 64, MESH_RANKS,
+                          device=torch.device("cuda:0"))
+    xe = prng.normal(prng.PRNGKey(seed + 3), (2, 8, 32),
+                     device=torch.device("cuda:0"))
     with torch.no_grad():
         whole = moe_ffn(moe, xe)
         with pm.use_mesh(ep):
@@ -3717,8 +3800,7 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
                         "one_card_p50_ms": one_run["p50_ms"]}
     # the chat LM at chat() width, 64 new bytes, one dispatch
     cfg = CaptionerConfig.chat()
-    params = init_params(cfg, torch.Generator().manual_seed(seed),
-                         device=torch.device("cuda"))
+    params = init_params(cfg, seed, device=CUDA)
     one = chat_texts(cfg, params, enabled=False)
     fa.reset_counts()
     on_mesh = chat_texts(cfg, params, enabled=True)
@@ -3738,8 +3820,7 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
     for name, m in (("one_device", None), ("mesh", mesh)):
         state = TrainState.create(
             ViTConfig.b32(), CaptionerConfig.base(), torch.device("cuda"),
-            learning_rate=3e-4,
-            generator=torch.Generator().manual_seed(seed), mesh=m)
+            learning_rate=3e-4, seed=seed, mesh=m)
         losses[name] = state.step(*state.shard_batch(images, tokens))[1]
         del state
         torch.cuda.empty_cache()
@@ -3754,8 +3835,13 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
                       deadline_s=600.0, threads=2)
     wall = time.perf_counter() - t0
     lead = ranks[0]
-    assert lead["store_equal"] and lead["chat_equal"], \
-        {k: lead[k] for k in ("store_equal", "chat_equal")}
+    assert lead["store_equal"], lead["store_equal"]
+    # the tensor-parallel decode sums each block's products in two halves:
+    # a byte may differ from one card's only at a near-tie
+    for tie in lead["chat_ties"]:
+        assert_near_tie(f"phase 22: chat row {tie['row']} over "
+                        f"model_axis=2 and one card", tie)
+    assert lead["chat_equal"] or lead["chat_ties"], lead["chat_texts"]
     for r in ranks:
         c = r["store_counts"]
         assert c["score_topk"] >= 2 and c["merge"] >= 2 and \
@@ -3780,6 +3866,57 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
         f"{MESH_RANKS} ranks on one card, not a multi-card number): "
         f"{json.dumps(res)}")
     return res
+
+
+def chat_rows(client, prompts, max_tokens: int) -> tuple:
+    """``complete_batch_sync``'s texts for ``prompts``, and the token rows
+    its decode emitted (``generate_from_tokens`` recorded)."""
+    from vidgraph_tpu_torch.models import captioner
+
+    real, seen = captioner.generate_from_tokens, []
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out.cpu().numpy())
+        return out
+
+    captioner.generate_from_tokens = recording
+    try:
+        texts = client.complete_batch_sync(prompts, max_tokens=max_tokens)
+    finally:
+        captioner.generate_from_tokens = real
+    return texts, seen[-1][:len(prompts)]
+
+
+def chat_gap(client, prompt: str, max_tokens: int, a: np.ndarray,
+             b: np.ndarray):
+    """None where the token rows ``a`` (``client``'s own for ``prompt``)
+    and ``b`` are equal; else the first step where they differ and the gap
+    there between the two bytes' logits of ``a``'s context, teacher-forced
+    through ``prefill_logits`` (``caption_gap``'s record)."""
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.models.captioner import prefill_logits
+
+    diff = np.nonzero(a != b)[0]
+    if not len(diff):
+        return None
+    s = int(diff[0])
+    cfg = client.cfg
+    cap = cfg.max_len - cfg.num_vision_tokens - \
+        client._decode_budget(max_tokens)
+    ids = tokenizer.encode(client._fit_prompt(prompt), add_bos=True,
+                           add_eos=False)[:min(cap,
+                                               client.max_prompt_bytes + 1)]
+    ctx = torch.tensor([list(ids) + [int(t) for t in a[:s]]],
+                       device=client.device)
+    with torch.no_grad():
+        logits, _ = prefill_logits(client._serve_params, cfg, ctx, 1)
+    row = logits[0, cfg.num_vision_tokens + ctx.shape[1] - 1]
+    top2 = torch.topk(row, 2).values
+    return {"first_differing_step": s, "ref_byte": int(a[s]),
+            "got_byte": int(b[s]),
+            "logit_gap": float(row[int(a[s])] - row[int(b[s])]),
+            "top2_gap": float(top2[0] - top2[1])}
 
 
 def chat_texts(cfg, params, enabled: bool) -> list:
@@ -4164,6 +4301,216 @@ def route_p50(reqs, session) -> dict:
     return {path: statistics.median(v) for path, v in by_route.items()}
 
 
+# ----------------------------------------------------------------- phase 24
+# phase 24: draws on the card against the JAX package's on the CPU (the
+# fixture's): normals and tree leaves within this many ulp
+SEEDED_ULP = 2
+SEEDED_CHUNKS = 3
+
+
+def ulp_gaps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """float32 distance in units in the last place (ordered int view)."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def f32_b64(text: str) -> np.ndarray:
+    return np.frombuffer(base64.b64decode(text), np.float32)
+
+
+def check_normals(name: str, got: torch.Tensor, want: np.ndarray) -> dict:
+    got = got.cpu().numpy()
+    gaps = ulp_gaps(got, want)
+    res = {"n": int(got.size), "max_ulp": int(gaps.max()),
+           "bit_equal_share": float(np.mean(got == want))}
+    assert got.shape == want.shape and res["max_ulp"] <= SEEDED_ULP, \
+        f"{name} on the card vs JAX: {res}"
+    return res
+
+
+def check_leaf(key: str, leaf: torch.Tensor, want: dict) -> bool:
+    """One leaf against the fixture: shape, float64 sum and sum of squares
+    (within what moving each value by ``SEEDED_ULP`` could change), the
+    first 16 values within ``SEEDED_ULP``; True when its bytes hash the
+    same (bit-equal)."""
+    a = leaf.detach().float()
+    assert list(a.shape) == want["shape"], (key, a.shape, want["shape"])
+    flat = a.reshape(-1).double()
+    total, sq = float(flat.sum()), float((flat * flat).sum())
+    n = flat.numel()
+    rel = SEEDED_ULP * 2.0 ** -23
+    assert abs(total - want["sum"]) <= rel * math.sqrt(n * want["sumsq"]) \
+        + 1e-9, (key, total, want["sum"])
+    assert abs(sq - want["sumsq"]) <= 2 * rel * want["sumsq"] + 1e-12, \
+        (key, sq, want["sumsq"])
+    head = a.reshape(-1)[:len(want["head"])].cpu().numpy()
+    assert int(ulp_gaps(head, np.asarray(want["head"], np.float32))
+               .max(initial=0)) <= SEEDED_ULP, (key, head, want["head"])
+    data = a.cpu().numpy().tobytes()
+    return hashlib.sha1(data).hexdigest() == want["sha1"]
+
+
+def seeded_trees(seed: int) -> dict:
+    """ViT-B/32 and ``CaptionerConfig.base()`` drawn on the card from
+    ``seed``, as the fixture's keys (``vit/...``, ``cap/...``) -> leaf."""
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     init_params)
+    from vidgraph_tpu_torch.models.checkpoint import tree_leaves
+    from vidgraph_tpu_torch.models.vit import ViTConfig, init_vision_tower
+
+    tower = init_vision_tower(ViTConfig.b32(), seed, device=CUDA)
+    cap = init_params(CaptionerConfig.base(), seed, device=CUDA)
+    leaves = {"vit/" + k.replace(".", "/"): v
+              for k, v in tower.state_dict().items()}
+    leaves.update({"cap/" + k: v for k, v in tree_leaves(cap)})
+    return leaves
+
+
+def host_randn_ms(shapes) -> float:
+    """The draw the port made before it drew JAX's stream: ``torch.randn``
+    on the host, each leaf then moved to the card (a yardstick only;
+    nothing in the port draws so now)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for shape in shapes:
+        torch.randn(shape).to(CUDA)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def seeded_vlm_cli(tmp: Path) -> dict:
+    """The CLI's ``vlm`` at the shipped config (``backend.vlm: tpu``, no
+    checkpoint: weights from seed 0) on ``synthetic_chunks``' frames,
+    between a reset and a read of the launch counts."""
+    from vidgraph_tpu_torch.cli.main import main as cli_main
+    from vidgraph_tpu_torch.pipeline import vlm_extractor
+
+    vlm_extractor.iter_chunk_frames = (
+        lambda path, secs, per_chunk, *a: synthetic_chunks(
+            SEEDED_CHUNKS, per_chunk, secs))
+    vlm_extractor.count_chunks = lambda path, secs: SEEDED_CHUNKS
+    reset_vision_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["vlm", "--config", str(ROOT / "config/base_config.yaml"),
+                   "--video", "synthetic_405x720.mp4", "--output",
+                   str(tmp / "vlm_seeded.json")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = vision_counts()
+    assert rc == 0, f"the seeded vlm exited {rc}"
+    data = json.loads((tmp / "vlm_seeded.json").read_text())
+    assert data["metadata"]["config"]["backend"]["vlm"] == "tpu"
+    assert not data["metadata"]["config"]["vlm"].get("checkpoint_path")
+    texts = [r["content"] for r in data["results"]]
+    assert len(texts) == SEEDED_CHUNKS and all(
+        isinstance(t, str) for t in texts)
+    layers = 8
+    assert counts["preprocess"] >= SEEDED_CHUNKS, counts
+    assert counts["flash"] >= layers * SEEDED_CHUNKS, counts
+    assert counts["plain"] == 0, counts
+    return {"counts": counts, "wall_s": wall, "texts": texts}
+
+
+def caption_agreement(ref: dict, texts: list) -> dict:
+    """The card's seeded captions against the JAX package's on the CPU
+    (the fixture's): equal rows, and for each other row the logit gap at
+    its first differing byte, from a client built as the CLI builds it.
+    Reported, not gated: with random weights near-ties are common, and the
+    card's bf16 products round otherwise than the CPU's."""
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    vlm = TPUVLMClient(seed=0, max_new=ref["max_new"])
+    chunks = [c for _, _, c in synthetic_chunks(
+        ref["chunks"], ref["frames_per_chunk"], 5.0)]
+    rows = []
+    for i, (chunk, want) in enumerate(zip(chunks, ref["rows"])):
+        toks, vis = caption_tokens(vlm, [chunk])
+        own = toks[0].cpu().numpy().astype(np.int64)
+        jax_toks = np.asarray(want["tokens"], np.int64)
+        gap = caption_gap(vlm, vis[0], own, jax_toks)
+        if gap is not None:  # caption_gap's ref is the card's, got JAX's
+            gap["card_byte"] = gap.pop("ref_byte")
+            gap["jax_byte"] = gap.pop("got_byte")
+        rows.append({"chunk": i, "equal_tokens": gap is None,
+                     "cli_text_is_own": tokenizer.decode(own) == texts[i],
+                     "text_equal_to_jax": texts[i] == want["text"],
+                     "gap": gap})
+    equal = sum(r["equal_tokens"] for r in rows)
+    return {"rows": rows, "equal_rows": equal,
+            "equal_share": equal / len(rows), "gated": False}
+
+
+def phase_seeded(seed: int, card: str) -> dict:
+    """Phase 24: JAX's seeded draws on the card (``core/prng.py``) against
+    the JAX package's on the CPU (``tests/torch_jax_draws.json``), then the
+    seeded ``vlm`` with its captions beside JAX's."""
+    from vidgraph_tpu_torch.core import prng
+
+    ref = jax_draws()
+    draws = ref["draws"]
+    key = prng.PRNGKey(draws["seed"])
+    bits = prng.bits(key, (len(draws["bits"]),), device=CUDA).cpu().numpy()
+    assert np.array_equal(bits, np.asarray(draws["bits"], np.int64)), \
+        "threefry bits on the card differ from JAX's"
+    bern = prng.bernoulli(key, 0.5, (draws["bernoulli_n"],), device=CUDA)
+    assert np.packbits(bern.cpu().numpy()).tobytes().hex() == \
+        draws["bernoulli_packed"], "bernoulli on the card differs from JAX's"
+    want_n = f32_b64(draws["normal_f32"])
+    want_t = f32_b64(draws["truncated_f32"])
+    res = {"bits_equal": True, "bernoulli_equal": True,
+           "normal": check_normals("normal", prng.normal(
+               prng.PRNGKey(draws["normal_seed"]), want_n.shape,
+               device=CUDA), want_n),
+           "truncated_normal": check_normals(
+               "truncated_normal", prng.truncated_normal(
+                   prng.PRNGKey(draws["truncated_seed"]),
+                   *draws["truncated_bounds"], want_t.shape, device=CUDA),
+               want_t)}
+
+    # the seed-0 trees of the shipped vlm: drawn on the card, cold, then
+    # again warm, and the host torch.randn draw they replace
+    want = ref["trees"]["leaves"]
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        leaves = seeded_trees(ref["trees"]["seed"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    assert set(leaves) == set(want), sorted(set(leaves) ^ set(want))
+    bit_equal = sum(check_leaf(k, v, want[k]) for k, v in leaves.items())
+    n_values = sum(v.numel() for v in leaves.values())
+    shapes = [tuple(v.shape) for v in leaves.values()]
+    del leaves
+    torch.cuda.empty_cache()
+    res["trees"] = {"leaves": len(want), "values": n_values,
+                    "bit_equal_leaves": bit_equal,
+                    "draw_ms_cold": times[0], "draw_ms_warm": times[1],
+                    "host_randn_ms": host_randn_ms(shapes)}
+    log(f"phase 24: JAX's draws on {card}: bits and bernoulli equal, "
+        f"normals {json.dumps(res['normal'])}, truncated "
+        f"{json.dumps(res['truncated_normal'])}; ViT-B/32 + base() trees "
+        f"{json.dumps(res['trees'])}")
+
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)
+        try:
+            cli = seeded_vlm_cli(tmp)
+        finally:
+            os.chdir(old_cwd)
+    res["vlm_cli"] = {k: v for k, v in cli.items() if k != "texts"}
+    res["captions"] = caption_agreement(ref["captions"], cli["texts"])
+    log(f"phase 24: seeded vlm through the CLI on {card}: "
+        f"{json.dumps(res['vlm_cli'])}; captions against JAX's on the CPU "
+        f"(reported, not gated): {json.dumps(res['captions'])}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   quant, bwd, training, streams, tooling, mesh,
                   leader) -> dict:
@@ -4380,7 +4727,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-23 "
+                    help="development: run only these of phases 14-24 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4419,9 +4766,10 @@ def main() -> int:
             20: lambda: phase_encoder_trainers(args.seed, card),
             21: lambda: phase_tooling(args.seed, card),
             22: lambda: phase_mesh(tc, args.seed, card),
-            23: lambda: phase_leader(tc, args.seed, card)}
+            23: lambda: phase_leader(tc, args.seed, card),
+            24: lambda: phase_seeded(args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 23")
+        ap.error("--phases takes 14 to 24")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -4459,6 +4807,8 @@ def main() -> int:
     log(f"phases 1-22 done at {time.perf_counter() - t0:.1f} s")
     leader = late[23]()
     log(f"phases 1-23 done at {time.perf_counter() - t0:.1f} s")
+    seeded = late[24]()
+    log(f"phases 1-24 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training, streams, tooling,
@@ -4476,7 +4826,7 @@ def main() -> int:
         "tooling": {k: v for k, v in tooling.items() if k != "vit_b160"},
         "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
                      if k != "profile"},
-        "mesh": mesh, "leader": leader,
+        "mesh": mesh, "leader": leader, "seeded": seeded,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

@@ -67,7 +67,7 @@ def profile_step(name: str, cfg, loss_of, batch_shape, flash: bool,
     from vidgraph_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev,
+    params = init_params(cfg, 0, device=dev,
                          requires_grad=True)
     opt = AdamW(params, warmup_cosine_decay_schedule(0.0, 3e-4, 2, 1000,
                                                      3e-5),

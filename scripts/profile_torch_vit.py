@@ -104,7 +104,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     cfg = ViTConfig.b32()
     b = 4 if args.smoke else args.batch
-    tower = init_vision_tower(cfg, torch.Generator().manual_seed(args.seed),
+    tower = init_vision_tower(cfg, args.seed,
                               device=device).eval()
     rng = np.random.default_rng(args.seed)
     frames = torch.as_tensor(rng.integers(0, 256, size=(b, *FRAME_HW, 3),

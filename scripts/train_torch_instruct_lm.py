@@ -181,7 +181,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = (CaptionerConfig(width=64, layers=2, heads=2, vision_dim=64,
                            num_vision_tokens=2, max_len=args.seq_len + 512)
            if args.smoke else CaptionerConfig.chat())
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+    params = init_params(cfg, args.seed,
                          device=device, requires_grad=True)
     nv = cfg.num_vision_tokens
 

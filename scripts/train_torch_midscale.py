@@ -127,7 +127,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     toks = pack_corpus(captions, args.seq_len, rng)
     print(f"corpus: {toks.shape[0]} windows of {args.seq_len + 1}")
 
-    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+    params = init_params(cfg, args.seed,
                          device=device, requires_grad=True)
     sched = warmup_cosine_decay_schedule(
         0.0, args.lr, warmup_steps=max(1, args.steps // 10),

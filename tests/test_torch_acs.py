@@ -6,10 +6,11 @@ graph.
 
 Tolerance 1e-5 (absolute and relative, float32 sums in another order;
 hop and path counts are integers, exact in both).  The metric records are
-rounded to 4 decimals by both packages, so there every value but Louvain's
-is equal.  Louvain draws random half-node masks: fed JAX's masks (drawn
-here with ``jax.random`` in ``_louvain``'s own split order) the port gives
-the same labels; with its own ``torch.Generator`` it is held to
+rounded to 4 decimals by both packages, so there every value is equal,
+Louvain's too.  Louvain draws random half-node masks: the port's own
+(``louvain_masks``, JAX's stream through ``core/prng.py``) equal JAX's
+(drawn here with ``jax.random`` in ``_louvain``'s own split order), so it
+gives the same labels, and it is held to
 ``tests/test_acs.py::test_xla_louvain_modularity_parity``'s criteria.
 """
 import os
@@ -30,7 +31,6 @@ from vidgraph_tpu.graph.embedded import EmbeddedGraphStore  # noqa: E402
 from vidgraph_tpu_torch.core.config import ACSConfig as TConfig  # noqa: E402
 
 TOL = 1e-5
-LOUVAIN = ("louvain_communities", "louvain_modularity")
 
 
 def _random_store(n_entities=40, n_rels=80, seed=0):
@@ -117,7 +117,7 @@ def jax_masks(n, levels=3, iters=20, seed=42):
     return torch.from_numpy(np.array(out))
 
 
-def _assert_metrics_equal(got, want, skip=LOUVAIN):
+def _assert_metrics_equal(got, want, skip=()):
     assert "error" not in got and "error" not in want, (got, want)
     assert set(got) == set(want)
     for key in want:
@@ -152,7 +152,7 @@ def _fused_inputs(adj):
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_device_sweep_metrics_equal_jax(seed):
     """``acs.backend: xla`` in both packages on ``tests/test_acs.py``'s
-    stores: every metric but Louvain equal."""
+    stores: every metric equal, Louvain's too."""
     s = _random_store(seed=seed)
     want = jacs.ACSAutomata(s, JConfig(backend="xla")).update_metrics()
     got = tacs.ACSAutomata(s, TConfig(backend="xla")).update_metrics()
@@ -200,8 +200,8 @@ def test_betweenness_clustering_pagerank_assortativity_match_jax(name):
 
 def test_ba926_metrics_equal_jax_under_auto():
     """bench.py's 926-node graph through ``_compute``: ``auto`` resolves
-    to the device sweep in both packages; every metric but Louvain
-    equal."""
+    to the device sweep in both packages; every metric equal, Louvain's
+    too."""
     adj = _ba_adj()
     names = [f"n{i}" for i in range(926)]
     out = {}
@@ -236,7 +236,7 @@ def test_louvain_with_jax_masks_equals_jax(graph):
 
 def test_louvain_with_the_ports_generator_meets_the_parity_criteria():
     """``tests/test_acs.py::test_xla_louvain_modularity_parity`` on the
-    port's own masks: the exact community count and >= 95 % of NetworkX's
+    port's own masks (``louvain_masks``, JAX's stream): the exact community count and >= 95 % of NetworkX's
     modularity on planted structure, >= 85 % on an Erdős–Rényi graph."""
     acs = tacs.ACSAutomata.__new__(tacs.ACSAutomata)
     for G, exact_k in [

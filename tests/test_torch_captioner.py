@@ -60,7 +60,7 @@ def test_configs_and_param_tree_match():
     assert chat.dtype == torch.bfloat16
     assert chat.num_params == jcap.CaptionerConfig.chat().num_params
     jp = jcap.init_params(J_TINY, seed=0)
-    tp = tcap.init_params(T_TINY, torch.Generator().manual_seed(0))
+    tp = tcap.init_params(T_TINY, 0)
     jl = jax.tree_util.tree_leaves_with_path(jp)
     from vidgraph_tpu_torch.models.checkpoint import tree_leaves
     tl = dict(tree_leaves(tp))

@@ -67,7 +67,7 @@ def test_jax_npz_loads_bit_exact(tmp_path):
 
 def test_port_npz_loads_bit_exact_in_jax(tmp_path):
     tp = tcap.init_params(tcap.CaptionerConfig.tiny(),
-                          torch.Generator().manual_seed(5),
+                          5,
                           param_dtype=torch.bfloat16)
     tp["ln_f_bias"] = torch.linspace(-1, 1, 32)
     path = tck.save_params(tp, str(tmp_path / "sub" / "t.npz"))

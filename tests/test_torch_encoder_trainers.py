@@ -17,7 +17,9 @@ imported by path).
   gradient.
 * Each ``main([... "--device", "cpu"])`` at a small size in a temp dir:
   the loss falls (the mean of the last quarter of the steps below the
-  first quarter's), the npz loads with the JAX package's ``load_params``
+  first quarter's; the selector's 8-step smoke instead logs the JAX
+  script's losses, which from the same seed weights do not fall), the
+  npz loads with the JAX package's ``load_params``
   bit for bit, the sidecar has the JAX script's keys, and the checkpoint
   serves in both packages' serving classes within 1e-5 (float32).
 """
@@ -26,6 +28,8 @@ import importlib.util
 import json
 import os
 import random
+import re
+import sys
 from pathlib import Path
 
 os.environ.setdefault("VIDGRAPH_TORCH_DEVICE", "cpu")
@@ -433,7 +437,7 @@ def test_selector_loss_and_updates_match_the_jax_arithmetic(scripts):
 
 
 def test_selector_trainer_runs_caches_and_serves_in_both_packages(
-        scripts, corpus, tmp_path):
+        scripts, corpus, tmp_path, monkeypatch, capsys):
     tm = scripts["train_torch_answer_selector"]
     out = tmp_path / "answer_selector.npz"
     cache = tmp_path / "examples.npz"
@@ -449,9 +453,27 @@ def test_selector_trainer_runs_caches_and_serves_in_both_packages(
         8, trr.RerankerConfig.tiny().max_len)
     rec = tm.main(argv)
     assert rec["device"] == "cpu" and len(rec["losses"]) == 8
-    assert all(np.isfinite(rec["losses"])) and _falls(rec["losses"]), \
-        rec["losses"]
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
     assert [s for s, _ in rec["held_losses"]] == [7]
+    # the JAX script on the same cached examples: both draw the seed
+    # weights from JAX's stream, so its logged losses (4 decimals) are the
+    # port's (8 steps at this lr need not lower the loss: neither
+    # package's does)
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", [
+        "train_answer_selector.py", "--corpus", str(corpus), "--smoke",
+        "--lr", "3e-3", "--out", str(tmp_path / "jax_selector.npz"),
+        "--data-cache", str(cache)])
+    scripts["train_answer_selector"].main()
+    logged = capsys.readouterr().out
+    train = {int(m[1]): float(m[2]) for m in
+             re.finditer(r"step\s+(\d+)\s+loss (\S+)", logged)}
+    held = [float(m[1]) for m in re.finditer(r"HELD loss (\S+)", logged)]
+    assert sorted(train) == [0, 7] and len(held) == 1, logged
+    for step, want in train.items():
+        assert abs(rec["losses"][step] - want) <= 5e-5 + F32_TOL, \
+            (step, rec["losses"], logged)
+    assert abs(rec["held_losses"][0][1] - held[0]) <= 5e-5 + F32_TOL
     meta = json.loads(out.with_suffix(".json").read_text())
     assert set(meta) == {"selector_cfg", "steps", "train_examples"}
     assert meta["selector_cfg"] == {"width": 32, "layers": 2, "heads": 2,

@@ -5,8 +5,8 @@ packages build a graph with the recall profile (``config/
 high_recall_config.yaml``: vector search on, pre-injector similarity on,
 word splitter) and NetworkX ACS.  Then graphs must be equal exactly; the
 retrieval texts of 10 queries with ``entity_first=False`` equal; ACS
-metrics under NetworkX, and under ``auto`` (the device sweep) but for
-Louvain, and the benchmark JSON for one results file equal; and the port
+metrics under NetworkX and under ``auto`` (the device sweep, Louvain
+included), and the benchmark JSON for one results file equal; and the port
 must rebuild ``tests/golden/pipeline_golden.json`` from the committed
 ``tests/golden/vlm_output_golden.json``.
 
@@ -318,15 +318,13 @@ def test_acs_xla_backend_raises(built, monkeypatch):
 def test_acs_metrics_under_auto_are_equal(built):
     """The shipped default, ``acs.backend: auto``: on the kg graph (above
     96 nodes, so both packages take their device sweep) every metric but
-    Louvain's two (random masks from another stream) and the time is
-    equal."""
+    the time is equal, Louvain's two included (the same masks, from JAX's
+    stream)."""
     got = {}
     for name, (pkg, _cfg, store, _d) in built.items():
         m = pkg["acs"].ACSAutomata(store, pkg["cfg"].ACSConfig(
             backend="auto")).update_metrics()
-        for key in ("computational_time", "louvain_communities",
-                    "louvain_modularity"):
-            m.pop(key)
+        m.pop("computational_time")
         got[name] = m
     assert "error" not in got["port"]
     assert got["port"]["node_count"] >= tacs._AUTO_XLA_MIN_NODES

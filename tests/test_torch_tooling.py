@@ -125,7 +125,7 @@ def judge_files(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("judge")
     ckpt = tmp / "instruct_lm.npz"
     save_params(init_params(CaptionerConfig.chat(),
-                            torch.Generator().manual_seed(0)), str(ckpt))
+                            0), str(ckpt))
     ckpt.with_suffix(".json").write_text(json.dumps({"seq_len": 640,
                                                      "max_new": 48}))
     cfg = yaml.safe_load((ROOT / "config" /

@@ -119,7 +119,7 @@ def test_remat_gives_the_same_loss_and_gradients():
     runs = []
     for remat in (False, True):
         tp = tcap.init_params(_cap_cfg(jcfg),
-                              torch.Generator().manual_seed(2))
+                              2)
         runs.append(_port_lm_grads(tp, _cap_cfg(jcfg), vis, toks,
                                    remat=remat))
     (l0, g0), (l1, g1) = runs

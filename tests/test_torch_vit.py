@@ -130,7 +130,7 @@ def test_weights_cross_through_a_jax_npz(tmp_path):
 
 def test_port_tree_round_trips_through_its_npz(tmp_path):
     tower = tvit.init_vision_tower(tvit.ViTConfig.tiny(),
-                                   torch.Generator().manual_seed(1))
+                                   1)
     path = tck.save_params({"vit": tvit.param_tree(tower)},
                            str(tmp_path / "t.npz"))
     other = tvit.init_vision_tower(tvit.ViTConfig.tiny())

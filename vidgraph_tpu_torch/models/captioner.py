@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import prng
 from ..ops.flash_attention import flash_attention
 from ..parallel import comm
 from ..parallel.mesh import (MODEL_AXIS, active_group, active_mesh,
@@ -122,23 +123,22 @@ class CaptionerConfig:
                 + 2 * d + d * v + self.layers * per_block)
 
 
-def init_params(cfg: CaptionerConfig,
-                generator: Optional[torch.Generator] = None,
+def init_params(cfg: CaptionerConfig, seed: int = 0,
                 param_dtype: torch.dtype = torch.float32,
                 device: Optional[torch.device] = None,
                 requires_grad: bool = False) -> Dict:
-    """Random parameters in the JAX tree's layout: matrices N(0, 0.02) in
-    ``param_dtype``, layer-norm scales one, biases zero (float32).  Drawn
-    on the host from ``generator`` (seed 0 when None), then moved to
-    ``device``; JAX's ``PRNGKey`` draws other numbers, so weights cross
-    between the packages through ``convert.py`` or a checkpoint.
-    ``requires_grad`` marks every leaf for training (``trainable``)."""
-    gen = generator or torch.Generator().manual_seed(0)
+    """The JAX package's ``init_params(cfg, seed, param_dtype)``: the same
+    numbers, drawn on ``device`` (the CPU when None) by ``core/prng.py``
+    from ``split(PRNGKey(seed), 8 + 8 x layers)`` in the JAX tree's order:
+    matrices N(0, 1) x 0.02 in float32, then cast to ``param_dtype``;
+    layer-norm scales one, biases zero (float32).  ``requires_grad`` marks
+    every leaf for training (``trainable``)."""
+    keys = iter(prng.split(prng.PRNGKey(seed), 8 + cfg.layers * 8))
     d, v = cfg.width, cfg.vocab
 
     def dense(*shape):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32) * 0.02
-        return w.to(device=device, dtype=param_dtype)
+        w = prng.normal(next(keys), shape, device=device) * 0.02
+        return w.to(dtype=param_dtype)
 
     def full(n, value):
         return torch.full((n,), value, dtype=torch.float32, device=device)

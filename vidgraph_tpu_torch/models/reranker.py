@@ -57,15 +57,13 @@ class RerankerConfig:
 
 def init_reranker_params(cfg: RerankerConfig, seed: int = 0,
                          device: Optional[torch.device] = None):
-    """The captioner tree of ``cfg.captioner_cfg()`` drawn from
-    ``torch.Generator().manual_seed(seed)`` without its decoder head and
-    vision projection, ``score_w`` [width, 1] from
-    ``np.random.default_rng(seed + 7)`` as in the JAX package, and a zero
-    ``score_b`` [1]."""
+    """The JAX package's ``init_reranker_params(cfg, seed)``: the
+    captioner tree ``init_params(cfg.captioner_cfg(), seed)`` without its
+    decoder head and vision projection, ``score_w`` [width, 1] from
+    ``np.random.default_rng(seed + 7)``, and a zero ``score_b`` [1]."""
     from .captioner import init_params
 
-    enc = init_params(cfg.captioner_cfg(), torch.Generator().manual_seed(seed),
-                      device=device)
+    enc = init_params(cfg.captioner_cfg(), seed, device=device)
     for key in ("head_w", "vis_proj_w", "vis_proj_b"):
         enc.pop(key, None)
     rng = np.random.default_rng(seed + 7)

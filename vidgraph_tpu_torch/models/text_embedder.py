@@ -164,16 +164,13 @@ def encoder_forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
 
 def init_encoder_params(cfg, dim: int, seed: int = 0,
                         device: Optional[torch.device] = None):
-    """The encoder's parameters: the captioner tree of ``cfg`` drawn from
-    ``torch.Generator().manual_seed(seed)`` without its decoder head and
+    """The JAX package's ``init_encoder_params(cfg, dim, seed)``: the
+    captioner tree ``init_params(cfg, seed)`` without its decoder head and
     vision projection, and ``out_w`` [width, dim] from
-    ``np.random.default_rng(seed + 1)`` as in the JAX package (whose
-    other leaves come from ``jax.random``: weights cross through
-    ``convert.encoder_params_from_jax`` or a checkpoint)."""
+    ``np.random.default_rng(seed + 1)``."""
     from .captioner import init_params
 
-    enc = init_params(cfg, torch.Generator().manual_seed(seed),
-                      device=device)
+    enc = init_params(cfg, seed, device=device)
     for key in ("head_w", "vis_proj_w", "vis_proj_b"):
         enc.pop(key, None)
     rng = np.random.default_rng(seed + 1)

@@ -335,11 +335,12 @@ class TrainState:
     @classmethod
     def create(cls, vit_cfg: ViTConfig, cap_cfg: CaptionerConfig,
                device: Any = None, learning_rate: float = 1e-4,
-               weight_decay: float = 0.01,
-               generator: Optional[torch.Generator] = None,
+               weight_decay: float = 0.01, seed: int = 0,
                mesh: Any = None) -> "TrainState":
-        """Seed weights for both models on ``device`` (default:
-        ``core.platform.device()``) and a fresh optimiser; over ``mesh``
+        """The JAX package's seed weights for both models, each drawn from
+        ``seed`` (``init_vision_tower(vit_cfg, seed)`` and
+        ``init_params(cap_cfg, seed)``) on ``device`` (default:
+        ``core.platform.device()``), and a fresh optimiser; over ``mesh``
         (a (data, model) ``DeviceMesh``) each rank keeps its slices.
         ``params`` is ``{"vit": {<parameter name>: parameter}, "cap":
         <captioner tree>}`` over the live parameters; ``checkpoint_tree``
@@ -349,9 +350,8 @@ class TrainState:
 
             device = default_device()
         device = torch.device(device)
-        gen = generator or torch.Generator().manual_seed(0)
-        tower = init_vision_tower(vit_cfg, gen, device=device).train()
-        cap = init_params(cap_cfg, gen, device=device, requires_grad=True)
+        tower = init_vision_tower(vit_cfg, seed, device=device).train()
+        cap = init_params(cap_cfg, seed, device=device, requires_grad=True)
         return cls.from_models(tower, cap, vit_cfg, cap_cfg, learning_rate,
                                weight_decay, mesh=mesh)
 

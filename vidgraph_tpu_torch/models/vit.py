@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import prng
 from ..ops.preprocess import patchify
 from ..ops.short_attention import fused_short_attention, packed_attention
 from ..parallel import comm
@@ -207,25 +208,35 @@ class VisionTower(nn.Module):
                                  + 1e-12)
 
 
-def init_vision_tower(cfg: ViTConfig,
-                      generator: Optional[torch.Generator] = None,
+# the counter (from 1) Flax's ``make_rng`` gives each parameter in its
+# scope: Dense creates its kernel before its bias, LayerNorm its scale
+# before its bias, the tower ``cls`` before ``pos``
+_FLAX_COUNTER = {"kernel": 1, "scale": 1, "bias": 2, "cls": 1, "pos": 2}
+
+
+def init_vision_tower(cfg: ViTConfig, seed: int = 0,
                       device: Optional[torch.device] = None) -> VisionTower:
-    """A tower with random float32 parameters drawn on the host from
-    ``generator`` (seed 0 when None), then moved to ``device``: kernels
-    N(0, 1/fan_in) (Flax's lecun_normal, untruncated), ``cls`` and ``pos``
-    N(0, 0.02), biases zero, layer-norm scales one.  Flax's ``PRNGKey``
-    draws other numbers; weights cross through ``convert.py`` or a
-    checkpoint."""
-    gen = generator or torch.Generator().manual_seed(0)
-    tower = VisionTower(cfg)
+    """The tower the JAX package's ``init_vision_tower(cfg, seed)`` makes
+    (Flax's ``VisionTower(cfg).init(PRNGKey(seed), ...)``), float32
+    parameters drawn on ``device`` (the CPU when None) by ``core/prng.py``
+    from the key Flax derives for each one (``prng.flax_key`` over the
+    parameter's Flax path): kernels lecun_normal (a normal truncated to
+    two standard deviations, over sqrt(fan_in)), ``cls`` and ``pos``
+    N(0, 1) x 0.02, biases zero, layer-norm scales one."""
+    root = prng.PRNGKey(seed)
+    with torch.device(device if device is not None else "cpu"):
+        tower = VisionTower(cfg)
     with torch.no_grad():
         for name, p in tower.named_parameters():
-            if name.endswith("kernel"):
-                p.copy_(torch.randn(p.shape, generator=gen)
-                        / math.sqrt(p.shape[0]))
-            elif name in ("cls", "pos"):
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-    return tower.to(device) if device is not None else tower
+            *path, leaf = name.split(".")
+            key = prng.flax_key(root, path, _FLAX_COUNTER[leaf])
+            if leaf == "kernel":
+                p.copy_(prng.lecun_normal(key, p.shape, device=p.device))
+            elif leaf in ("cls", "pos"):
+                p.copy_(prng.normal(key, p.shape, device=p.device) * 0.02)
+            else:
+                p.fill_(1.0 if leaf == "scale" else 0.0)
+    return tower
 
 
 def param_tree(tower: VisionTower) -> Dict[str, Any]:

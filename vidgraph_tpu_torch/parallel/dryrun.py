@@ -57,6 +57,7 @@ def _dryrun_impl(n_devices: int) -> List[str]:
     import dataclasses
     import torch.distributed as dist
 
+    from ..core import prng
     from ..models.captioner import CaptionerConfig, _block, generate, \
         init_params
     from ..models.tokenizer import batch_encode
@@ -113,9 +114,9 @@ def _dryrun_impl(n_devices: int) -> List[str]:
     # whole FFN
     n_exp = min(4, n_devices)
     ep_mesh = mesh_of(ranks.reshape(-1, n_exp), ("rep", "expert"))
-    moe_params = init_moe_params(torch.Generator().manual_seed(0),
-                                 d_model=32, d_hidden=64, n_experts=n_exp)
-    xe = torch.randn((2, 8, 32), generator=torch.Generator().manual_seed(1))
+    moe_params = init_moe_params(prng.PRNGKey(0), d_model=32, d_hidden=64,
+                                 n_experts=n_exp)
+    xe = prng.normal(prng.PRNGKey(1), (2, 8, 32))
     with torch.no_grad():
         ref_moe = moe_ffn(moe_params, xe)
         with use_mesh(ep_mesh):
@@ -128,7 +129,7 @@ def _dryrun_impl(n_devices: int) -> List[str]:
     pp_note = ""
     if n_devices >= 2 and n_devices % 2 == 0:
         pipe_mesh = mesh_of(ranks.reshape(-1, 2), ("rep", "pipe"))
-        pp_params = init_params(cap_cfg, torch.Generator().manual_seed(0))
+        pp_params = init_params(cap_cfg, seed=0)
         x = torch.from_numpy(rng.normal(size=(4, 8, cap_cfg.width))
                              .astype(np.float32))
         idx = torch.arange(8)
@@ -176,7 +177,7 @@ def _dryrun_impl(n_devices: int) -> List[str]:
     # gives the single-device tokens
     from .serving import shard_captioner_params
 
-    cap_params = init_params(cap_cfg, torch.Generator().manual_seed(1))
+    cap_params = init_params(cap_cfg, seed=1)
     vis = torch.from_numpy(rng.normal(
         size=(2, cap_cfg.num_vision_tokens, cap_cfg.vision_dim))
         .astype(np.float32))
@@ -263,7 +264,7 @@ def serve_batch(chat_cfg) -> list:
     from ..models.captioner import init_params
     from ..services.llm_client import TPUChatClient
 
-    params = init_params(chat_cfg, torch.Generator().manual_seed(0))
+    params = init_params(chat_cfg, seed=0)
     cli = TPUChatClient(cfg=chat_cfg, params=params, max_new=48,
                         max_batch=4)
     return cli.complete_batch_sync(RAGGED_PROMPTS, max_tokens=48)

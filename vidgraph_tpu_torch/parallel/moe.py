@@ -17,28 +17,27 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from . import comm
 from .mesh import active_group, axis_group, axis_rank, placements
 
 EXPERT_AXIS = "expert"
 
 
-def init_moe_params(generator: Optional[torch.Generator], d_model: int,
-                    d_hidden: int, n_experts: int,
+def init_moe_params(key, d_model: int, d_hidden: int, n_experts: int,
                     device: Optional[torch.device] = None
                     ) -> Dict[str, torch.Tensor]:
-    """N(0, 0.02) router [D, E], ``w_in`` [E, D, H] and ``w_out``
-    [E, H, D] drawn from ``generator`` (seed 0 when None); JAX's
-    ``PRNGKey`` draws other numbers, so weights cross through
-    ``moe_params_from_jax``."""
-    gen = generator or torch.Generator().manual_seed(0)
-
-    def normal(*shape):
-        return (torch.randn(shape, generator=gen) * 0.02).to(device)
-
-    return {"router_w": normal(d_model, n_experts),
-            "w_in": normal(n_experts, d_model, d_hidden),
-            "w_out": normal(n_experts, d_hidden, d_model)}
+    """The JAX package's ``init_moe_params(key, ...)``: ``key`` (a
+    ``core/prng.py`` key) split three ways, N(0, 1) x 0.02 router [D, E],
+    ``w_in`` [E, D, H] and ``w_out`` [E, H, D], drawn on ``device`` (the
+    CPU when None)."""
+    k1, k2, k3 = prng.split(key, 3)
+    return {"router_w": prng.normal(k1, (d_model, n_experts),
+                                    device=device) * 0.02,
+            "w_in": prng.normal(k2, (n_experts, d_model, d_hidden),
+                                device=device) * 0.02,
+            "w_out": prng.normal(k3, (n_experts, d_hidden, d_model),
+                                 device=device) * 0.02}
 
 
 def moe_params_from_jax(tree: Mapping[str, Any],

@@ -29,15 +29,14 @@ and the BFS reads its "still growing" flag once every ``_BFS_CHECK`` steps,
 not once a step.  A failure of the fused sweep raises (the JAX package
 falls back to its per-metric path; ``update_metrics`` still turns any
 error into its ``{"error": ...}`` record, the reference's contract).
-
-Deviation (ROADMAP §3): Louvain's random half-node masks come from a
-``torch.Generator`` seeded 42, not from ``jax.random``'s stream, so the
-community count and modularity may differ from the JAX package's; fed the
-same masks (``_louvain(..., masks=)``) the two agree.
+Louvain's random half-node update masks are the JAX package's, drawn from
+``PRNGKey(42)`` by ``core/prng.py``, so its labels, community count and
+modularity are the JAX package's too.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import random
 import time
@@ -46,6 +45,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.config import ACSConfig
 from ..core.logger import get_logger
 from ..core.platform import device
@@ -226,13 +226,22 @@ def _pagerank(adj_d: torch.Tensor, valid: torch.Tensor, iters: int = 50,
     return p
 
 
+@functools.lru_cache(maxsize=16)
 def louvain_masks(n: int, levels: int = 3, iters: int = 20,
                   seed: int = 42) -> torch.Tensor:
-    """The port's random half-node update masks, bool [levels, iters, n],
-    from a ``torch.Generator`` seeded ``seed`` (drawn on the host, so that
-    every device gets the same masks)."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.rand((levels, iters, n), generator=gen) < 0.5
+    """The random half-node update masks, bool [levels, iters, n], that
+    ``vidgraph_tpu/pipeline/acs.py::_louvain`` draws from
+    ``PRNGKey(seed)``: per level ``key, sub = split(key)``, then
+    ``split(sub, iters)`` and one ``bernoulli(0.5, (n,))`` a key.  Drawn
+    on the host (``core/prng.py``) and cached: the caller must not write
+    to them."""
+    key = prng.PRNGKey(seed)
+    levels_out = []
+    for _ in range(levels):
+        key, sub = prng.split(key)
+        levels_out.append(torch.stack(
+            [prng.bernoulli(k, 0.5, (n,)) for k in prng.split(sub, iters)]))
+    return torch.stack(levels_out)
 
 
 def _one_hot(labels: torch.Tensor, n: int) -> torch.Tensor:
@@ -753,7 +762,7 @@ class ACSAutomata:
                      masks: Optional[torch.Tensor] = None):
         """Undirected parallel Louvain on the device; returns
         (n_communities, modularity) matching the NetworkX call's outputs.
-        ``masks`` as ``_louvain`` takes them (the port's generator when
+        ``masks`` as ``_louvain`` takes them (``louvain_masks`` when
         None)."""
         und = np.minimum(adj + adj.T, 1.0)
         np.fill_diagonal(und, 0.0)

@@ -94,10 +94,9 @@ class TPUVLMClient(VLMClient):
             cap_cfg = cap_cfg or CaptionerConfig(dtype=torch.float32, **ckw)
         self.vit_cfg = vit_cfg or ViTConfig.b32()
         self.cap_cfg = cap_cfg or CaptionerConfig.base()
-        gen = torch.Generator().manual_seed(seed)
-        self.vit = init_vision_tower(self.vit_cfg, gen,
+        self.vit = init_vision_tower(self.vit_cfg, seed,
                                      device=self.device).eval()
-        self.cap_params = init_params(self.cap_cfg, gen,
+        self.cap_params = init_params(self.cap_cfg, seed,
                                       param_dtype=param_dtype
                                       or torch.float32, device=self.device)
         if checkpoint:

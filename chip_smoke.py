@@ -326,9 +326,37 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    seed on the CPU: equal rows, and each other row's logit gap at its
    first differing byte.  The captions are reported, not gated: with
    random weights near-ties are common.
+25. kernel domains: kernels 1 and 2 at the inputs their TPU kernels take
+   and the port once refused, each held to its plain version with the
+   tolerances of phases 2 and 9 and timed (kernel, plain version,
+   library yardstick, bound); the timed calls' launches are reported
+   apart (``kernel1_timing_calls``, ``kernel2_timing_calls``: no plain
+   version serves) and stay out of the kernels record, which takes only
+   the launches of the paths below, each path between a reset and a read
+   of the counts.  Kernel 1: top-k at k 65, 100, 256 and 1000 (the dense
+   scores and a stable sort) at B 1 and 16 on a
+   200,000 x 512 float32 store whose row 10 is copied across tile and
+   segment boundaries (a query of it gets the copies in row order); d
+   1000, 2560 and 4096 on 20,000 rows (top-5 and dense); the
+   ``EmbeddingStore`` mirror of the 200,000 rows in float32, bfloat16 and
+   float16 (its ``torch.cuda.memory_allocated`` bytes: a 16-bit mirror
+   half the float32's; top-5 at B 1 / 16 and top-100 against the plain
+   version on the rounded rows upcast) and ``search(k=100)`` on each
+   equal to a CPU store's (``hits_match``: ids equal where the scores are
+   more than ``TOL`` apart); bench's
+   retrieval with ``rerank_pool: 100`` and the trained reranker: bench's
+   30 queries on the card after its warm-up queries, timed one by one,
+   and the first ``DOMAIN_QUERIES`` on the CPU, texts equal to the card's
+   or their 100-chunk pools equal (the reranker's near-ties).  Kernel 2:
+   5 frames of 2160 x 3840, 3840 x 2160, 4320 x 7680 and 1081 x 1921 ->
+   224, fast
+   and exact (strips of output columns; 4K and 8K with bands of more
+   than 32 source rows), and
+   ``TPUVLMClient(preprocess="device")`` captioning one chunk of five 4K
+   frames: kernel 2 once, no plain version.
 
-``--phases 14,15,16,17,18,19,20,21,22,23,24`` runs only the named phases
-of 14-24 (with the build): a partial run prints no kernels record and no
+``--phases 14,15,16,17,18,19,20,21,22,23,24,25`` runs only the named
+phases of 14-25 (with the build): a partial run prints no kernels record and no
 ``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
@@ -539,8 +567,9 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
 
 def library_scores(q, store, past):
     """The library yardstick of the dense mode: ``F.normalize`` and one
-    matrix product, the rows ``past`` the count masked."""
-    scores = F.normalize(q, dim=-1) @ store.T
+    matrix product (a 16-bit store upcast first), the rows ``past`` the
+    count masked."""
+    scores = F.normalize(q, dim=-1) @ store.float().T
     return scores.masked_fill_(past, -1e30)
 
 
@@ -654,11 +683,12 @@ def phase_golden(device: str = "cuda") -> None:
 
 
 def bench_retriever(device: str, embedder_kind: str = "tpu",
-                    reranker_kind: str = "tpu"):
+                    reranker_kind: str = "tpu", rerank_pool: int = 0):
     """bench.py's reference-scale graph on ``device``, behind a hybrid
-    retriever set as ``bench.py:93-95`` sets it, and its 30 queries; the
-    chunks embedded and the queries served by the ``backend.embedder`` and
-    ``backend.reranker`` kinds given."""
+    retriever set as ``bench.py:93-95`` sets it (``retrieval.rerank_pool``
+    as given), and its 30 queries; the chunks embedded and the queries
+    served by the ``backend.embedder`` and ``backend.reranker`` kinds
+    given."""
     import bench
     from vidgraph_tpu_torch.core.config import PipelineConfig
     from vidgraph_tpu_torch.graph.embedded import EmbeddedGraphStore
@@ -672,6 +702,7 @@ def bench_retriever(device: str, embedder_kind: str = "tpu",
     cfg.retrieval.entity_first = False
     cfg.retrieval.post_compression = True
     cfg.retrieval.rerank_after_traversal = True
+    cfg.retrieval.rerank_pool = rerank_pool
     embedder = make_embed_client(embedder_kind,
                                  dim=cfg.embedding_memory.dim)
     reranker = make_rerank_client(reranker_kind, embed_client=embedder)
@@ -745,6 +776,13 @@ def store_search_ms(seed: int) -> dict:
 
 def launch_counts(tc) -> dict:
     return {**tc.LAUNCHES, "plain": tc.REF_CALLS}
+
+
+def take_counts(tc, into: dict) -> None:
+    """Add kernel 1's launch counts to ``into`` and set them to 0."""
+    for key, n in launch_counts(tc).items():
+        into[key] = into.get(key, 0) + n
+    tc.reset_counts()
 
 
 def phase_main_path(tc, seed: int) -> dict:
@@ -4511,9 +4549,265 @@ def phase_seeded(seed: int, card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 25
+DOMAIN_K = (65, 100, 256, 1000)
+DOMAIN_DIMS = (1000, 2560, 4096)
+DOMAIN_FRAMES = [(2160, 3840), (3840, 2160), (4320, 7680), (1081, 1921)]
+DOMAIN_QUERIES = 2
+
+
+def topk_bound(n: int, d: int, elem: int, b: int, k: int) -> dict:
+    """The top-k's least time: the store's ``n`` counted rows, the queries
+    and the [B, k] results moved once; 2 B n d float32 operations."""
+    return bound(n * d * elem + b * d * 4 + b * k * 8, 2.0 * b * n * d,
+                 F32_FLOPS)
+
+
+def domain_topk(tc, q, store, k: int, count: int, device_ms: bool) -> dict:
+    """One top-k shape: held to the plain version, then CUDA-event medians
+    of the kernel, the plain version and the library yardstick
+    (``torch.topk`` of ``F.normalize(q) @ S.float().T``), the device's
+    time from CUDA-graph replay where asked, and the bound."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+
+    n, d = store.shape
+    past = torch.arange(n, device="cuda") >= count
+    row = {"max_abs_err": check_topk(tc, q, store, k, count),
+           "ms": cuda_ms(lambda: tc.cosine_topk(q, store, k, count=count)),
+           "plain_ms": cuda_ms(
+               lambda: tc.cosine_topk_ref(q, store, k, count=count)),
+           "library_ms": cuda_ms(lambda: library_topk(q, store, past, k)),
+           **topk_bound(min(count, n), d, store.element_size(), q.shape[0],
+                        k)}
+    if device_ms:
+        row["device_ms"] = graph_ms(
+            lambda: tc.cosine_topk(q, store, k, count=count))
+    return row
+
+
+def mirror_bytes(host: np.ndarray, dtype) -> tuple:
+    """An ``EmbeddingStore`` of ``host``'s rows with a ``dtype`` mirror on
+    the card: (the store, the bytes its mirror holds on the card)."""
+    from vidgraph_tpu_torch.memory.embedding_store import EmbeddingStore
+
+    store = EmbeddingStore(dim=host.shape[1], capacity=host.shape[0],
+                           dtype=dtype)
+    store.add([f"c{i}" for i in range(host.shape[0])], host)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mirror = store._device_store()
+    torch.cuda.synchronize()
+    assert mirror.dtype == dtype
+    return store, torch.cuda.memory_allocated() - before
+
+
+def hits_match(got: list, ref: list) -> bool:
+    """``EmbeddingStore.search`` results against a reference's: scores
+    within ``TOL`` rank by rank, ids equal wherever the reference's scores
+    on both sides of the rank are more than ``TOL`` apart."""
+    if len(got) != len(ref):
+        return False
+    for g, r in zip(got, ref):
+        gs = np.array([x for _, x in g])
+        rs = np.array([x for _, x in r])
+        if len(g) != len(r) or np.abs(gs - rs).max(initial=0.0) > TOL:
+            return False
+        pad = np.concatenate([[np.inf], rs, [-np.inf]])
+        apart = (pad[:-2] - pad[1:-1] > TOL) & (pad[1:-1] - pad[2:] > TOL)
+        if any(g[j][0] != r[j][0] for j in np.flatnonzero(apart)):
+            return False
+    return True
+
+
+def domain_retrieval(tc) -> dict:
+    """bench's retrieval with ``rerank_pool: 100`` and the trained
+    reranker (phase 19's client): on the card bench's 30 queries after its
+    warm-up queries, timed one by one, between a reset and a read of the
+    counts; then the first ``DOMAIN_QUERIES`` on the CPU: texts equal, or
+    where not, the query's 100-chunk pool equal on both (its hits by
+    ``hits_match``), so that the texts differ by the reranker's near-ties
+    only."""
+    import bench
+
+    async def serve(retriever, asked):
+        texts, times = [], []
+        for q in asked:
+            t = time.perf_counter()
+            texts.append((await retriever.perform_hybrid_retrieval(q))[0])
+            times.append((time.perf_counter() - t) * 1e3)
+        return texts, times
+
+    def pools(retriever, store, asked):
+        q = np.stack([retriever.embed.embed_query(x) for x in asked])
+        return store._chunk_emb.search(q, 100)
+
+    retriever, store, queries = bench_retriever("cuda", "tpu", "trained",
+                                                rerank_pool=100)
+    asyncio.run(serve(retriever, queries[:bench.WARMUP]))
+    tc.reset_counts()
+    texts, times = asyncio.run(serve(retriever, queries))
+    counts = launch_counts(tc)
+    sample = queries[:DOMAIN_QUERIES]
+    gpu_pools = pools(retriever, store, sample)
+    retriever, store, _ = bench_retriever("cpu", "tpu", "trained",
+                                          rerank_pool=100)
+    cpu_texts, _ = asyncio.run(serve(retriever, sample))
+    cpu_pools = pools(retriever, store, sample)
+    os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
+    assert all(texts), "an empty retrieval text"
+    assert counts["score_dense"] >= len(texts) and counts["plain"] == 0, \
+        counts
+    equal = [a == b for a, b in zip(texts, cpu_texts)]
+    for i, same in enumerate(equal):
+        assert len(gpu_pools[i]) == 100
+        assert same or hits_match(gpu_pools[i:i + 1], cpu_pools[i:i + 1]), \
+            f"rerank_pool 100: query {i} differs from the CPU's"
+    times.sort()
+    return {"queries": len(texts), "p50_ms": statistics.median(times),
+            "p95_ms": times[int(0.95 * (len(times) - 1))],
+            "cpu_sample": len(equal), "texts_equal_cpu": sum(equal),
+            "launches": counts}
+
+
+def domain_vlm(seed: int) -> dict:
+    """``TPUVLMClient(preprocess="device")`` captions one chunk of five
+    2160 x 3840 frames between a reset and a read of the counts: kernel 2
+    once, no plain version."""
+    from vidgraph_tpu_torch.ops import preprocess as pre
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    vlm = TPUVLMClient(seed=0, max_new=32, preprocess="device")
+    frames = list(np.random.default_rng(seed + 25).integers(
+        0, 256, (5, 2160, 3840, 3), dtype=np.uint8))
+    reset_vision_counts()
+    t0 = time.perf_counter()
+    caption = vlm.caption_batch_sync([frames])[0]
+    counts = {**vision_counts(), "preprocess_plain": pre.REF_CALLS}
+    assert counts["preprocess"] == 1 and counts["preprocess_plain"] == 0, \
+        counts
+    assert isinstance(caption, str)
+    return {"s": time.perf_counter() - t0, "launches": counts,
+            "caption_bytes": len(caption.encode())}
+
+
+def phase_domains(tc, seed: int, card: str) -> dict:
+    """Kernels 1 and 2 at the inputs their TPU kernels take and the port
+    once refused: k past the kernel's lists, widths past 2048, 16-bit
+    stores, 4K and 8K frames; the paths that reach them."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.memory.embedding_store import EmbeddingStore
+    from vidgraph_tpu_torch.ops import preprocess as pre
+
+    rng = np.random.default_rng(seed + 25)
+    host = rng.normal(size=(STORE_ROWS, DIM)).astype(np.float32)
+    host /= np.linalg.norm(host, axis=1, keepdims=True)
+    store = torch.from_numpy(host).cuda()
+    seg = tc.segment_rows(STORE_ROWS, store.device)
+    dup = sorted({10, 255, 256, 257, seg - 1, seg, seg + 1, 2 * seg + 100,
+                  STORE_ROWS - 1000})
+    store[dup] = store[dup[0]].clone()
+    q = torch.from_numpy(rng.normal(size=(16, DIM)).astype(np.float32)).cuda()
+    q[0] = store[dup[0]] * 2.0
+    res = {"large_k": {}, "wide_d": {}, "mirror": {}, "frames": {}}
+    timed, searched = {}, {}
+    tc.reset_counts()
+    for k in DOMAIN_K:
+        for b in (1, 16):
+            res["large_k"][f"b{b}_k{k}"] = domain_topk(tc, q[:b], store, k,
+                                                       STORE_COUNT, False)
+        ids = tc.cosine_topk(q[:1], store, k, count=STORE_COUNT)[1]
+        assert ids[0, :len(dup)].tolist() == dup, "ties out of row order"
+    for d in DOMAIN_DIMS:
+        wide = F.normalize(torch.from_numpy(rng.normal(
+            size=(20_000, d)).astype(np.float32)).cuda(), dim=-1)
+        qd = torch.from_numpy(rng.normal(size=(16, d)).astype(
+            np.float32)).cuda()
+        for b in (1, 16):
+            res["wide_d"][f"d{d}_b{b}"] = domain_topk(tc, qd[:b], wide, 5,
+                                                      19_000, True)
+        dense = tc.cosine_scores(qd, wide, count=19_000)
+        torch.cuda.synchronize()
+        err = float((dense - tc.cosine_scores_ref(qd, wide, 19_000))
+                    .abs().max())
+        assert err <= TOL, f"d={d} dense error {err}"
+        res["wide_d"][f"d{d}_dense_b16"] = {"max_abs_err": err}
+        del wide
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16),
+                        ("float16", torch.float16)):
+        st, nbytes = mirror_bytes(host, dtype)
+        mirror = st._device_store()
+        row = {"mirror_bytes": nbytes, "rows": st.capacity}
+        if dtype != torch.float32:
+            for b in (1, 16):
+                row[f"b{b}_k5"] = domain_topk(tc, q[:b], mirror, 5,
+                                              STORE_ROWS, True)
+            row["b16_k100"] = domain_topk(tc, q, mirror, 100, STORE_ROWS,
+                                          False)
+        take_counts(tc, timed)
+        row["search_k100"] = st.search(q.cpu().numpy(), 100)
+        take_counts(tc, searched)
+        res["mirror"][name] = row
+        del st, mirror
+    f32 = res["mirror"]["float32"]["mirror_bytes"]
+    assert res["mirror"]["bfloat16"]["mirror_bytes"] * 2 == f32
+    assert res["mirror"]["float16"]["mirror_bytes"] * 2 == f32
+    res["kernel1_timing_calls"] = timed
+    res["store_search_launches"] = searched
+    assert timed["plain"] == 0 and searched["plain"] == 0, (timed, searched)
+    assert searched["score_dense"] >= 3, searched
+    del store
+    # after the read: each store's search(k=100) against a CPU store's
+    for name, row in res["mirror"].items():
+        cpu = EmbeddingStore(dim=DIM, capacity=STORE_ROWS,
+                             dtype=getattr(torch, name),
+                             device=torch.device("cpu"))
+        cpu.add([f"c{i}" for i in range(STORE_ROWS)], host)
+        ref = cpu.search(q.cpu().numpy(), 100)
+        got = row.pop("search_k100")
+        assert hits_match(got, ref), \
+            f"{name} store: search(k=100) differs from the CPU's"
+        row["search_k100_equal_cpu"] = True
+        del cpu
+
+    pre.reset_counts()
+    for h, w in DOMAIN_FRAMES:
+        x = torch.from_numpy(rng.integers(0, 256, (5, h, w, 3),
+                                          dtype=np.uint8)).cuda()
+        for fast in (True, False):
+            got = pre.preprocess_frames(x, 224, fast)
+            torch.cuda.synchronize()
+            ref = pre.preprocess_ref(x, 224, fast)
+            tol = pre.TOL_FAST if fast else pre.TOL_F32
+            err = float((got.float() - ref.float()).abs().max())
+            assert got.shape == ref.shape and bool(torch.isfinite(got).all()) \
+                and err <= tol, f"preprocess 5x{h}x{w} fast={fast}: {err}"
+            plan = pre.plan(h, w, 224, fast, 5)
+            res["frames"][f"b5_{h}x{w}_{'fast' if fast else 'exact'}"] = {
+                "max_abs_err": err, "tol": tol,
+                "ms": graph_ms(lambda: pre.preprocess_frames(x, 224, fast)),
+                "plain_ms": cuda_ms(lambda: pre.preprocess_ref(x, 224, fast)),
+                "library_ms": cuda_ms(lambda: library_resize(x, 224)),
+                "plan": {"rows": plan.rows, "cols": plan.cols,
+                         "source_rows": int(plan.count.max()),
+                         "smem": plan.smem},
+                **bound(x.numel() + got.numel() * got.element_size(), 0.0,
+                        F32_FLOPS)}
+            del got, ref
+        del x
+    res["kernel2_timing_calls"] = {**pre.LAUNCHES, "plain": pre.REF_CALLS}
+    assert res["kernel2_timing_calls"]["plain"] == 0
+    res["retrieval_rerank_pool_100"] = domain_retrieval(tc)
+    res["vlm_4k"] = domain_vlm(seed)
+    log(f"phase 25: kernels 1 and 2 at their full domains on {card} (ms, "
+        f"CUDA-event medians; device_ms and the frames' ms from CUDA-graph "
+        f"replay): {json.dumps(res)}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   quant, bwd, training, streams, tooling, mesh,
-                  leader) -> dict:
+                  leader, domains) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -4543,6 +4837,16 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     # phase 23's: the streams and servers under the rank-0 leader, NCCL
     # world 1 and every gloo rank
     led = leader["launches"]
+    # phase 25's paths (not its timed calls): the three stores'
+    # search(k=100) and the retrieval with rerank_pool 100; the 4K caption
+    dom1 = {key: (domains["store_search_launches"][key]
+                  + domains["retrieval_rerank_pool_100"]["launches"][key])
+            for key in ("score_topk", "merge", "score_dense")}
+    dom2 = domains["vlm_4k"]["launches"]["preprocess"]
+    big_k = domains["large_k"]["b16_k1000"]
+    bf16 = domains["mirror"]["bfloat16"]
+    wide = domains["wide_d"]["d4096_b16"]
+    frame8k = domains["frames"]["b5_4320x7680_fast"]
     pre5 = pre["b5_405x720_fast"]
     short5 = short["b5"]
     q8row = q8k["rows"]["K2048_N8192_M32"]
@@ -4562,7 +4866,15 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "source": src, "replaces": replaces,
          "launches": (launches["score_topk"]
                       + sweep["topk_launches"]["score_topk"]
-                      + mesh_topk["score_topk"] + led["score_topk"]),
+                      + mesh_topk["score_topk"] + led["score_topk"]
+                      + dom1["score_topk"]),
+         "domain_launches": dom1["score_topk"],
+         "bf16_store": {"timed": "top-5, B=16, 200000x512 bf16 mirror",
+                        "mirror_bytes": bf16["mirror_bytes"],
+                        "float32_mirror_bytes":
+                            domains["mirror"]["float32"]["mirror_bytes"],
+                        **bf16["b16_k5"]},
+         "wide_store": {"timed": "top-5, B=16, 20000x4096 f32", **wide},
          "sweep_epoch_launches": sweep["topk_launches"]["score_topk"],
          "mesh_launches": mesh_topk["score_topk"],
          "leader_launches": led["score_topk"],
@@ -4583,7 +4895,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
         {"name": "cosine_topk_merge", "route": "cuda", "source": src,
          "replaces": replaces,
          "launches": (launches["merge"] + sweep["topk_launches"]["merge"]
-                      + mesh_topk["merge"] + led["merge"]),
+                      + mesh_topk["merge"] + led["merge"] + dom1["merge"]),
          "sweep_epoch_launches": sweep["topk_launches"]["merge"],
          "mesh_launches": mesh_topk["merge"],
          "leader_launches": led["merge"],
@@ -4592,10 +4904,14 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "plain_ms": stages["merge_b16_k5"]["plain_ms"],
          "library_ms": lib["merge_b16_k5"],
          **bound(kern["partial_bytes"] + 16 * 5 * 8, 0.0, F32_FLOPS),
+         "domain_launches": dom1["merge"],
          "timed": "merge of the segments' top-5 partials, B=16"},
         {"name": "cosine_score_tile (dense mode)", "route": "cuda",
          "source": src, "replaces": replaces,
-         "launches": launches["score_dense"],
+         "launches": launches["score_dense"] + dom1["score_dense"],
+         "domain_launches": dom1["score_dense"],
+         "large_k": {"timed": "top-1000, B=16, 200000x512 f32: the dense "
+                              "scores and a stable sort", **big_k},
          "max_abs_err": kern["score_err"], "ms": dense["kernel_ms"],
          "plain_ms": dense["plain_ms"], "library_ms": lib["dense_b16"],
          "device_ms": dense["device_ms"],
@@ -4642,7 +4958,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
              **vit160["kernels"]["preprocess"]},
          "launches": (sum(c["preprocess"] for c in vision_counts)
                       + vit160["launches"]["preprocess"]
-                      + led["preprocess"]),
+                      + led["preprocess"] + dom2),
+         "domain_launches": dom2,
+         "frames_8k": {"timed": "5 frames 4320x7680 uint8 -> 224 bf16, "
+                                "strips of output columns", **frame8k},
          "leader_launches": led["preprocess"],
          "max_abs_err": max(r["max_abs_err"] for r in pre.values()),
          "ms": pre5["kernel_ms"], "plain_ms": pre5["plain_ms"],
@@ -4727,7 +5046,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-24 "
+                    help="development: run only these of phases 14-25 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4767,9 +5086,10 @@ def main() -> int:
             21: lambda: phase_tooling(args.seed, card),
             22: lambda: phase_mesh(tc, args.seed, card),
             23: lambda: phase_leader(tc, args.seed, card),
-            24: lambda: phase_seeded(args.seed, card)}
+            24: lambda: phase_seeded(args.seed, card),
+            25: lambda: phase_domains(tc, args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 24")
+        ap.error("--phases takes 14 to 25")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -4809,10 +5129,12 @@ def main() -> int:
     log(f"phases 1-23 done at {time.perf_counter() - t0:.1f} s")
     seeded = late[24]()
     log(f"phases 1-24 done at {time.perf_counter() - t0:.1f} s")
+    domains = late[25]()
+    log(f"phases 1-25 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training, streams, tooling,
-                           mesh, leader)
+                           mesh, leader, domains)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -4827,6 +5149,7 @@ def main() -> int:
         "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
                      if k != "profile"},
         "mesh": mesh, "leader": leader, "seeded": seeded,
+        "domains": domains,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

@@ -3,7 +3,8 @@ CUDA card.
 
     python3 scripts/compare_torch_kernels.py --parent DIR [--train]
         [--int8-decode] [--rounds 2]
-        [--jobs cosine,flash_fwd,short_attention,flash_bwd,q8,preprocess]
+        [--jobs cosine,flash_fwd,short_attention,flash_bwd,q8,preprocess,
+                plans]
 
 ``DIR`` holds another commit of this repository (for example
 ``git archive <commit> | tar -x -C DIR``, in a directory ``.gitignore``
@@ -39,8 +40,16 @@ named by ``--jobs`` (the first four by default):
   tree's signature), the wrapper's host time a call, cuBLAS bf16 beside;
   bfloat16 out where the tree takes ``out_dtype``;
 * ``preprocess``: phase 9's frames (5 and 160 of 405 x 720 -> 224, fast
-  and exact, 224^2, 120 x 160), each checked first, device time from
-  CUDA-graph replay and the CUDA-event median of a call.
+  and exact, 224^2, 120 x 160) and phase 21's 160 frames of 720 x 1280
+  (fast), each checked first, device time from CUDA-graph replay and the
+  CUDA-event median of a call;
+* ``plans``: the preprocessing kernel under each of its two block plans
+  (``ops/preprocess.py::full_plan``, bands of whole source rows, and
+  ``strip_plan``, bands x strips of output columns) at 5 and 160 frames
+  of 1080 x 1920, 1081 x 1921 and 1440 x 2560 -> 224, fast and exact,
+  where both fit the card: each held to the plain version, device time
+  from CUDA-graph replay, the plan ``plan`` picks and each plan's shape.
+  A tree with one plan reports none.
 
 ``--train`` also runs each tree's ``scripts/profile_torch_train_step.py``
 (instruct and mid-scale steps with ``--flash``) in the same order, and
@@ -246,7 +255,7 @@ def preprocess_job(smoke) -> dict:
 
     rng = np.random.default_rng(3)
     rows = {}
-    for b, h, w, fast in smoke.PRE_SHAPES:
+    for b, h, w, fast in [*smoke.PRE_SHAPES, (160, 720, 1280, True)]:
         x = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
                                           dtype=np.uint8)).cuda()
         got = pre.preprocess_frames(x, 224, fast)
@@ -264,11 +273,53 @@ def preprocess_job(smoke) -> dict:
     return rows
 
 
+def plans_job(smoke) -> dict:
+    """Both block plans of the preprocessing kernel at frames where the
+    planner picks between them, each held to the plain version first."""
+    import numpy as np
+    import torch
+
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+    from vidgraph_tpu_torch.ops import preprocess as pre
+
+    if not hasattr(pre, "strip_plan"):
+        return {}
+    rng = np.random.default_rng(0)
+    rows = {}
+    for h, w in [(1080, 1920), (1081, 1921), (1440, 2560)]:
+        for b in (5, 160):
+            x = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                              dtype=np.uint8)).cuda()
+            for fast in (True, False):
+                ref = pre.preprocess_ref(x[:5], 224, fast)
+                tol = pre.TOL_FAST if fast else pre.TOL_F32
+                row = {"chosen": "full" if pre.plan(
+                    h, w, 224, fast, b).cols == 224 else "strip"}
+                for name, strips, p in (
+                        ("full", False, pre.full_plan(h, w, 224, fast, b)),
+                        ("strip", True, pre.strip_plan(h, w, 224, fast))):
+                    if p.smem > pre.SMEM_MAX:
+                        continue
+                    got = pre._cuda_preprocess(x, 224, fast, strips)
+                    torch.cuda.synchronize()
+                    err = float((got[:5].float() - ref.float()).abs().max())
+                    assert err <= tol, (h, w, b, fast, name, err)
+                    row[name] = {
+                        "ms": graph_ms(lambda: pre._cuda_preprocess(
+                            x, 224, fast, strips)),
+                        "rows": p.rows, "cols": p.cols,
+                        "source_rows": int(p.count.max()), "smem": p.smem}
+                    del got
+                rows[f"{h}x{w}_b{b}_{'fast' if fast else 'exact'}"] = row
+            del x
+    return rows
+
+
 JOBS = {"cosine": cosine_job, "flash_fwd": flash_fwd_job,
         "short_attention": lambda smoke: smoke.phase_short_attention(
             0, smoke.nvidia_smi()),
         "flash_bwd": flash_bwd_job, "q8": q8_job,
-        "preprocess": preprocess_job}
+        "preprocess": preprocess_job, "plans": plans_job}
 DEFAULT_JOBS = ("cosine", "flash_fwd", "short_attention", "flash_bwd")
 
 

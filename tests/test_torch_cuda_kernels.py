@@ -2,9 +2,11 @@
 version, on the card.  Marked ``cuda``: they skip on a host without one.
 Run them there with ``python -m pytest tests/test_torch_cuda_kernels.py``.
 
-Tolerances: scores within 1e-5 (float32 sums taken in another order than
-cuBLAS takes them); indices equal wherever the reference scores on either
-side are more than 1e-5 apart, since a near-tie may swap.
+Tolerances (every store type: the plain version upcasts a 16-bit store to
+float32 as the kernel does): scores within 1e-5 (float32 sums taken in
+another order than cuBLAS takes them); indices equal wherever the
+reference scores on either side are more than 1e-5 apart, since a
+near-tie may swap.
 """
 import numpy as np
 import pytest
@@ -186,10 +188,62 @@ def test_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         tc.cosine_topk(q.double(), store.double(), 5)
     with pytest.raises(ValueError):
-        tc.cosine_topk(q[:, :510].contiguous(), store[:, :510].contiguous(), 5)
-    with pytest.raises(ValueError):
         tc.cosine_topk(q, store.T.contiguous().T, 5)
     with pytest.raises(ValueError):
-        tc.cosine_topk(q, store, 65)
+        tc.cosine_topk(q, store, -1)
     with pytest.raises(ValueError):
         tc.cosine_topk(q.cpu(), store, 5)
+    with pytest.raises(ValueError):
+        tc.topk_partials(q, store, tc.LIST_K + 1, 100)
+
+
+@pytest.mark.parametrize("k", [65, 100, 256, 1000])
+@pytest.mark.parametrize("b", [1, 16])
+def test_k_above_the_lists_matches_plain(dev, b, k):
+    """k past the kernel's lists (65, once refused): the dense scores and a
+    stable sort, with ties placed across tiles."""
+    store = _store(50_000, 512, k, dev)
+    dup = [3, 255, 256, 4000, 30_000, 49_999]
+    store[dup] = store[7].clone()
+    q = _queries(b, 512, k, dev)
+    q[0] = store[7] * 2.0
+    tc.reset_counts()
+    _assert_topk(q, store, k, 49_999)
+    assert tc.LAUNCHES["score_dense"] == 1 and tc.LAUNCHES["merge"] == 0
+    vals, idx = tc.cosine_topk(q, store, k, count=50_000)
+    torch.cuda.synchronize()
+    assert idx[0, :7].tolist() == sorted([7, *dup])
+
+
+@pytest.mark.parametrize("d", [1, 7, 510, 1000, 1001, 2560, 4096])
+def test_any_width_matches_plain(dev, d):
+    """Widths off a multiple of 4 (510, once refused) and past 2048: the
+    store is copied into rows of a 16-byte stride, or given as such a
+    view; top-k and dense scores."""
+    store = _store(3000, d, d, dev)
+    q = _queries(5, d, d, dev)
+    _assert_topk(q, store, 5, 2900)
+    rows = torch.zeros((3000, tc.padded_width(d, torch.float32)),
+                       device=dev)
+    rows[:, :d] = store
+    got = tc.cosine_scores(q, rows[:, :d], count=2900)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        got.cpu().numpy(), tc.cosine_scores_ref(q, store, 2900).cpu().numpy(),
+        atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [512, 1000, 20])
+@pytest.mark.parametrize("k", [5, 64, 100])
+def test_16_bit_stores_match_plain(dev, dtype, d, k):
+    """A bfloat16 or float16 store, read in its type and upcast: the plain
+    version on a float32 copy of the rounded rows (the reference of
+    ``_assert_topk`` upcasts as the kernel does)."""
+    store = _store(20_000, d, d + k, dev).to(dtype)
+    if d % 8:
+        rows = torch.zeros((20_000, tc.padded_width(d, dtype)), dtype=dtype,
+                           device=dev)
+        rows[:, :d] = store
+        store = rows[:, :d]
+    _assert_topk(_queries(16, d, d, dev), store, k, 19_000)

@@ -110,4 +110,30 @@ def test_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         pre.preprocess_frames(x.transpose(1, 2), 32, True)
     with pytest.raises(ValueError):
-        pre.preprocess_frames(_frames(1, 4, 5000, 0, dev), 32, True)
+        pre.preprocess_frames(x[:0], 32, True)
+
+
+@pytest.mark.parametrize("b,h,w,size", [
+    (1, 4, 5000, 32), (2, 2160, 3840, 224), (2, 3840, 2160, 224),
+    (1, 4320, 7680, 224), (1, 7680, 4320, 224), (2, 1081, 1921, 224),
+    (1, 1440, 2560, 224)])
+@pytest.mark.parametrize("fast", [True, False])
+def test_large_frames_match_plain(dev, b, h, w, size, fast):
+    """Frames whose full-width band does not fit within its limits (a
+    5000-px row, once refused; 1080p-odd and 1440p; 4K and 8K in either
+    orientation) take strips of output columns, 4K and 8K with bands of
+    more than 32 source rows."""
+    x = _frames(b, h, w, h + w, dev)
+    plan = pre.plan(h, w, size, fast, b)
+    if h > 1000:
+        assert plan.cols < size
+    if (h, w) in ((2160, 3840), (3840, 2160), (4320, 7680), (7680, 4320)):
+        assert plan.count.max() > 32
+    got = pre.preprocess_frames(x, size, fast)
+    torch.cuda.synchronize()
+    ref = pre.preprocess_ref(x, size, fast)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    tol = pre.TOL_FAST if ref.dtype == torch.bfloat16 else pre.TOL_F32
+    err = float((got.float() - ref.float()).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= tol, err
+    assert torch.equal(got, pre.preprocess_frames(x, size, fast))

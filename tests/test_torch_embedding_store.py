@@ -3,7 +3,7 @@
 The JAX store runs searches below 8192 rows as host BLAS and above it on
 its device path; both are compared (``device_min_rows`` 8192 and 0).  The
 port takes the JAX constructor's keywords (``dtype``, ``device_min_rows``)
-with a float32 or bfloat16 mirror.  The
+with a float32, bfloat16 or float16 mirror.  The
 port runs every size through ``ops/topk_cosine`` (here its plain version).
 Scores within 1e-5; ids equal wherever scores are more than 1e-5 apart.
 """
@@ -145,6 +145,9 @@ def test_jax_defaults_and_unsupported_mirror_types():
     jax_store = JaxStore(8)
     assert store.device_min_rows == jax_store.device_min_rows == 8192
     assert store.dtype == torch.float32
-    for bad in ("float16", torch.float64, np.int8):
+    # float16 is a mirror type, as in the JAX package (the kernel reads it)
+    for spelling in ("float16", torch.float16, np.float16):
+        assert EmbeddingStore(8, dtype=spelling).dtype == torch.float16
+    for bad in (torch.float64, np.int8):
         with pytest.raises(ValueError):
             EmbeddingStore(8, dtype=bad)

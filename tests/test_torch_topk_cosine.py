@@ -164,9 +164,20 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize("k", [0, 65])
 def test_k_outside_the_kernel_bound_raises(k):
+    """k = 0 and k = 65, once outside the kernel's bound, give JAX's
+    results (empty lists at 0; above the kernel's lists, its dense scores
+    and a stable sort); only a negative k raises, as in JAX."""
     q, s = _inputs(2, 100, 16, seed=6)
+    jv, ji = jtc.cosine_topk(jnp.asarray(q), jnp.asarray(s), k,
+                             use_pallas=False, valid_count=90)
+    vals, idx = tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), k,
+                               count=90)
+    assert vals.shape == idx.shape == np.asarray(jv).shape == (2, k)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), atol=TOL,
+                               rtol=0)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     with pytest.raises(ValueError):
-        tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), k)
+        tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), -1)
 
 
 def test_l2_normalize_matches_jax():

@@ -4,20 +4,21 @@ Counterpart of ``vidgraph_tpu/memory/embedding_store.py``, with the same
 write path, read path and persistence:
 
 Write path: rows are L2-normalised into a host-side staging buffer whose
-capacity doubles as it fills.  Read path: the buffer is mirrored to a float32
-``[capacity, dim]`` tensor on ``core/platform.py::device()`` once per
-generation (when dirty), and every search or similarity matrix is one call
-of ``ops/topk_cosine.py`` — the CUDA kernel on the card, its plain version
-on the CPU.
+capacity doubles as it fills.  Read path: the buffer is mirrored to a
+``[capacity, dim]`` tensor of the store's ``dtype`` on
+``core/platform.py::device()`` once per generation (when dirty), and every
+search or similarity matrix is one call of ``ops/topk_cosine.py`` — the
+CUDA kernel on the card, its plain version on the CPU.
 
 The constructor takes the JAX package's keywords with its defaults:
-``dtype`` is the mirror's type (float32 or bfloat16, as a torch dtype, a
-numpy dtype or a name); with bfloat16 the mirror holds the rows rounded to
-bfloat16, kept as float32 for the kernel, so scores equal the JAX
-package's (which casts its bfloat16 mirror to float32 to score).  A
-bfloat16 mirror therefore saves no memory: it takes float32's bytes and
-changes only the scores.  ``device_min_rows`` is kept on the object and
-has no effect.
+``dtype`` is the mirror's type (float32, bfloat16 or float16, as a torch
+dtype, a numpy dtype or a name).  The mirror holds the rows in that type,
+so a 16-bit mirror takes half the float32 mirror's bytes, and the kernel
+upcasts it to float32 to score, as the JAX package's kernel upcasts its
+16-bit mirror.  The mirror's rows are kept ``ops/topk_cosine.py::
+padded_width`` columns wide (zeros past ``dim``), the row stride the
+kernel's copies need, so a search copies nothing.  ``device_min_rows`` is
+kept on the object and has no effect.
 
 Deviation from the JAX package: it ran stores below ``device_min_rows``
 (8192) rows as a host BLAS matmul, a workaround for the round trip of a
@@ -33,17 +34,18 @@ import numpy as np
 import torch
 
 from ..core.platform import device as default_device
-from ..ops.topk_cosine import cosine_scores, cosine_topk
+from ..ops.topk_cosine import cosine_scores, cosine_topk, padded_width
 
 _MIN_CAPACITY = 1024
 # the JAX package's host-BLAS threshold, taken and kept; it has no effect
 _DEVICE_MIN_ROWS = 8192
-_MIRROR_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_MIRROR_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
 
 
 def _mirror_dtype(dtype: Any) -> torch.dtype:
-    """float32 or bfloat16, given as a torch dtype, a numpy dtype (or a
-    scalar type such as ``jnp.bfloat16``) or a name."""
+    """float32, bfloat16 or float16, given as a torch dtype, a numpy dtype
+    (or a scalar type such as ``jnp.bfloat16``) or a name."""
     if isinstance(dtype, torch.dtype):
         name = str(dtype).removeprefix("torch.")
     elif isinstance(dtype, str):
@@ -54,9 +56,24 @@ def _mirror_dtype(dtype: Any) -> torch.dtype:
         except TypeError:
             name = getattr(dtype, "__name__", str(dtype))
     if name not in _MIRROR_TYPES:
-        raise ValueError(f"dtype {dtype!r}: the store's mirror is float32 "
-                         "or bfloat16")
+        raise ValueError(f"dtype {dtype!r}: the store's mirror is float32, "
+                         "bfloat16 or float16")
     return _MIRROR_TYPES[name]
+
+
+def device_mirror(host: np.ndarray, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``host [n, d]`` float32 rows on ``device`` in ``dtype`` (rounded to
+    nearest even): a ``[n, d]`` view of rows ``padded_width(d, dtype)``
+    columns wide, zero past ``d``."""
+    n, d = host.shape
+    rows = torch.from_numpy(host).to(device)
+    width = padded_width(d, dtype)
+    if dtype == torch.float32 and width == d:
+        return rows
+    mirror = torch.zeros((n, width), dtype=dtype, device=device)
+    mirror[:, :d] = rows
+    return mirror[:, :d]
 
 
 class EmbeddingStore:
@@ -96,10 +113,9 @@ class EmbeddingStore:
 
     def _device_store(self) -> torch.Tensor:
         if self._mirror_dirty or self._mirror is None:
-            mirror = torch.from_numpy(self._host).to(self._device)
-            if self.dtype != torch.float32:
-                mirror = mirror.to(self.dtype).float()
-            self._mirror = mirror
+            self._mirror = None          # the old mirror's memory first
+            self._mirror = device_mirror(self._host, self.dtype,
+                                         self._device)
             self._mirror_dirty = False
         return self._mirror
 

@@ -52,14 +52,14 @@ def _sources():
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_int64
-    lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, i, p, p, p,
-                                             p]
+    lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, p,
+                                             p, p, p]
     lib.cosine_score_tile_launch.restype = i
     lib.cosine_topk_merge_launch.argtypes = [p, p, i, i, i, p, p, p]
     lib.cosine_topk_merge_launch.restype = i
     lib.cosine_tile_rows.restype = i
-    lib.cosine_max_dim.restype = i
-    lib.cosine_queries_per_launch.argtypes = [i]
+    lib.cosine_list_max_k.restype = i
+    lib.cosine_queries_per_launch.argtypes = [i, i, i]
     lib.cosine_queries_per_launch.restype = i
     lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.flash_attn_fwd_launch.restype = i
@@ -73,8 +73,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_takes_head_dim.argtypes = [i]
     lib.flash_takes_head_dim.restype = i
     lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, p, i,
-                                             i, i, i, i, i, i, f, f, f, f,
-                                             f, f, p]
+                                             i, i, i, i, i, i, i, i, i, f,
+                                             f, f, f, f, f, p]
     lib.preprocess_frames_launch.restype = i
     lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i64, i64,
                                            i64, p]

@@ -20,9 +20,12 @@ separable antialiased triangle-filter resize -> the CLIP affine -> [B, S, S,
 
 The kernel makes the same roundings as the plain version, so the two differ
 only by float32 summation order.  A block computes a band of output rows of
-one frame (``band_plan``): the band's source rows come into shared memory
+one frame (``plan``): the band's source rows come into shared memory
 once, by bulk copies; the height pass is a product on the tensor cores over
-them, and the width pass reads its rows from shared memory.  Per-output
+them, and the width pass reads its rows from shared memory.  Frames too
+large for a full-width band (4K, 8K) take blocks of a band x a strip of
+output columns that stage only their columns' bytes (``strip_plan``), so
+the kernel takes any frame size, as the JAX function does.  Per-output
 start offsets and tap weights are host tables built once per (source size,
 output size, mode, frames) and kept on the device.  Same-size frames take
 an elementwise kernel.
@@ -41,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -214,16 +217,30 @@ def _host_tables(h: int, w: int, size: int, fast: bool):
 
 
 # the kernel's launch shape (csrc/preprocess.cu): output rows a band at
-# most, source rows a band at most (two product steps), the shared memory
-# a block aims under (two blocks an SM of an H100: faster than three with
-# smaller bands, PERF.md) and the longest source
-# row it takes (a float32 row of it within 48 KB)
+# most, source rows a band at most in a full-width plan (two product steps),
+# the shared memory a block aims under (two blocks an SM of an H100: faster
+# than three with smaller bands, PERF.md), the most it may take, and the
+# output columns a strip is a multiple of (16-byte output runs)
 MAX_BAND = 8
 MAX_BAND_SOURCE_ROWS = 32
 SMEM_TARGET = 113 * 1024
 SMEM_MAX = 227 * 1024
-MAX_ROW_BYTES = 48 * 1024
+STRIP_COLS = 8
 H100_SMS = 132
+
+
+class Plan(NamedTuple):
+    """A launch's blocks: bands of ``rows`` output rows (``first`` source
+    row and source row ``count`` of each) x strips of ``cols`` output
+    columns (the staged bytes ``lo[s]:hi[s]`` of a source row of each),
+    and the shared bytes of a block."""
+    rows: int
+    first: np.ndarray
+    count: np.ndarray
+    cols: int
+    lo: np.ndarray
+    hi: np.ndarray
+    smem: int
 
 
 def _round16(n: int) -> int:
@@ -252,25 +269,48 @@ def _bands(hs: np.ndarray, th: int, rows: int) -> Tuple[np.ndarray,
     return np.asarray(first, np.int32), np.asarray(count, np.int32)
 
 
+def _strips(ws: np.ndarray, tw: int, cols: int, wc: int
+            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Strips of ``cols`` consecutive output columns: (first staged byte,
+    byte past the last) of a source row, int32, the 16-byte aligned span
+    (cut at the row's end) of every width tap of the strip's columns."""
+    c0 = np.arange(0, len(ws), cols)
+    c1 = np.minimum(c0 + cols, len(ws)) - 1
+    lo = 3 * ws[c0] // 16 * 16
+    hi = np.minimum(wc, -(-3 * (ws[c1] + tw) // 16) * 16)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
 def smem_bytes(w: int, size: int, rows: int, band_rows: int, th: int,
-               tw: int, bf16_out: bool) -> int:
+               tw: int, bf16_out: bool, cols: Optional[int] = None,
+               strip_bytes: Optional[int] = None) -> int:
     """Shared memory of one block (``csrc/preprocess.cu``'s layout): the
-    band's source rows (then its output, staged for the copy out), the
-    height-pass rows (bf16 where the output is), the width taps and
-    starts, the height taps and starts, a barrier."""
-    ls, elem = row_stride(w * 3), 2 if bf16_out else 4
-    staged = max(band_rows * ls, rows * size * 3 * elem)
-    return (_round16(staged) + rows * ls * elem + 3 * size * tw * 4
-            + size * 4 + rows * th * 4 + rows * 4 + 16)
+    band's source rows of a strip (then its output, staged for the copy
+    out), the height-pass rows (bf16 where the output is), the strip's
+    width taps and starts, the height taps and starts, the height
+    product's fragments in a strip plan (strips narrower than the row, or
+    bands of more than ``MAX_BAND_SOURCE_ROWS`` source rows), a barrier.
+    A strip is the whole row by default."""
+    cols = size if cols is None else cols
+    sb = 3 * w if strip_bytes is None else strip_bytes
+    ls, elem = row_stride(sb), 2 if bf16_out else 4
+    staged = max(band_rows * ls, rows * cols * 3 * elem)
+    frags = 0
+    if cols < size or band_rows > MAX_BAND_SOURCE_ROWS:
+        frags = -(-band_rows // 16) * (1 if bf16_out else 2) * 4 * 32 * 4
+    return (_round16(staged) + rows * ls * elem + 3 * cols * tw * 4
+            + cols * 4 + rows * th * 4 + rows * 4 + frags + 16)
 
 
 def band_plan(h: int, w: int, size: int, fast: bool, frames: int,
               sms: int = H100_SMS):
-    """(rows a band, first source row [nb], source rows [nb], shared bytes)
-    for ``frames`` frames: as many output rows a band as keep the grid
-    (bands x frames) at least ``sms`` blocks, at most ``MAX_BAND``, and
-    fewer where a block would pass ``SMEM_TARGET`` or a band
-    ``MAX_BAND_SOURCE_ROWS`` source rows (two product steps of 16)."""
+    """The full-width plan: (rows a band, first source row [nb], source
+    rows [nb], shared bytes) for ``frames`` frames: as many output rows a
+    band as keep the grid (bands x frames) at least ``sms`` blocks, at
+    most ``MAX_BAND``, and fewer where a block would pass ``SMEM_TARGET``
+    or a band ``MAX_BAND_SOURCE_ROWS`` source rows (two product steps of
+    16).  At one row it is returned even where it passes them; ``plan``
+    then takes strips."""
     starts, _, th, tw, _, _ = _host_tables(h, w, size, fast)
     hs = starts[:size]
     bf16_out = fast and (h, w) != (size, size)
@@ -284,42 +324,100 @@ def band_plan(h: int, w: int, size: int, fast: bool, frames: int,
         rows -= 1
 
 
+def strip_plan(h: int, w: int, size: int, fast: bool) -> Plan:
+    """Bands of up to ``MAX_BAND`` rows x strips of a multiple of
+    ``STRIP_COLS`` columns: of the blocks within ``SMEM_TARGET`` (else
+    ``SMEM_MAX``), the shape that stages the fewest source bytes a frame
+    (the height product's work goes with them), the larger block on a
+    tie."""
+    starts, _, th, tw, _, _ = _host_tables(h, w, size, fast)
+    hs, ws = starts[:size], starts[size:]
+    bf16_out = fast and (h, w) != (size, size)
+    widths = sorted({min(c, size) for c in
+                     range(STRIP_COLS, size + STRIP_COLS, STRIP_COLS)})
+    for limit in (SMEM_TARGET, SMEM_MAX):
+        best, best_key = None, None
+        for rows in range(1, MAX_BAND + 1):
+            first, count = _bands(hs, th, rows)
+            for cols in widths:
+                lo, hi = _strips(ws, tw, cols, 3 * w)
+                smem = smem_bytes(w, size, rows, int(count.max()), th, tw,
+                                  bf16_out, cols, int((hi - lo).max()))
+                if smem > limit:
+                    break            # wider strips only take more
+                key = (int(count.sum()) * int((hi - lo).sum()),
+                       -rows * cols)
+                if best_key is None or key < best_key:
+                    best_key = key
+                    best = Plan(rows, first, count, cols, lo, hi, smem)
+        if best is not None:
+            return best
+    raise ValueError(f"{h} x {w} -> {size}: a block of one output row and "
+                     f"{STRIP_COLS} columns needs more than {SMEM_MAX} "
+                     "bytes of shared memory")
+
+
+def full_plan(h: int, w: int, size: int, fast: bool, frames: int,
+              sms: int = H100_SMS) -> Plan:
+    """``band_plan`` as a ``Plan`` of one strip, the whole row."""
+    rows, first, count, smem = band_plan(h, w, size, fast, frames, sms)
+    one = np.zeros(1, np.int32)
+    return Plan(rows, first, count, size, one, one + 3 * w, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def plan(h: int, w: int, size: int, fast: bool, frames: int,
+         sms: int = H100_SMS) -> Plan:
+    """The kernel's blocks for ``frames`` frames of ``h x w`` -> ``size``:
+    ``full_plan`` where it keeps within its limits
+    (``MAX_BAND_SOURCE_ROWS`` source rows a band, ``SMEM_TARGET`` bytes),
+    else ``strip_plan``.  (A one-row band past ``SMEM_TARGET``, as at 1080p
+    and 1440p, runs slower than the strips on an H100: the ``plans`` job
+    of ``scripts/compare_torch_kernels.py`` times both.)"""
+    full = full_plan(h, w, size, fast, frames, sms)
+    if (full.count.max() <= MAX_BAND_SOURCE_ROWS
+            and full.smem <= SMEM_TARGET):
+        return full
+    return strip_plan(h, w, size, fast)
+
+
 @functools.lru_cache(maxsize=64)
 def _tables(h: int, w: int, size: int, fast: bool, frames: int,
-            device: torch.device):
-    """``_host_tables`` and ``band_plan`` on ``device``, kept: (starts,
-    weights (the width taps output-major), bands [first..., rows...], th,
-    tw, a, b, rows, nb, max band rows, shared bytes)."""
+            device: torch.device, strips: Optional[bool] = None):
+    """``_host_tables`` and the plan on ``device``, kept: (starts, weights
+    (the width taps output-major), bands [first..., rows..., lo..., hi...],
+    th, tw, a, b, the plan, its most source rows a band, its widest
+    strip's bytes).  The plan is ``plan``'s, or where ``strips`` is given,
+    ``strip_plan`` (True) or ``full_plan`` (False)."""
     starts, weights, th, tw, a, b = _host_tables(h, w, size, fast)
-    rows, first, count, smem = band_plan(h, w, size, fast, frames)
-    bands = np.concatenate([first, count]).astype(np.int32)
+    if strips is None:
+        p = plan(h, w, size, fast, frames)
+    elif strips:
+        p = strip_plan(h, w, size, fast)
+    else:
+        p = full_plan(h, w, size, fast, frames)
+    bands = np.concatenate([p.first, p.count, p.lo, p.hi]).astype(np.int32)
     # the width taps output-major, [size 3][tw], as the kernel reads them
     ww = weights[size * th:].reshape(3, size, tw).transpose(1, 0, 2)
     weights = np.concatenate([weights[:size * th], ww.ravel()])
     return (torch.from_numpy(starts).to(device),
             torch.from_numpy(weights).to(device),
-            torch.from_numpy(bands).to(device), th, tw, a, b, rows,
-            len(first), int(count.max()), smem)
+            torch.from_numpy(bands).to(device), th, tw, a, b, p,
+            int(p.count.max()), int((p.hi - p.lo).max()))
 
 
-def _cuda_preprocess(x: torch.Tensor, size: int,
-                     fast: bool) -> torch.Tensor:
+def _cuda_preprocess(x: torch.Tensor, size: int, fast: bool,
+                     strips: Optional[bool] = None) -> torch.Tensor:
+    """The kernel's launch; ``strips`` forces a plan (``_tables``), for
+    ``compare_torch_kernels.py``'s ``plans`` job."""
     b, h, w, c = x.shape
     if not x.is_contiguous():
         raise ValueError("frames must be contiguous")
-    if w * c * 4 > MAX_ROW_BYTES:
-        raise ValueError(f"width {w}: the kernel takes rows of at most "
-                         f"{MAX_ROW_BYTES // 12} pixels")
     if b == 0 or b > 65535:
         raise ValueError(f"B = {b}: the kernel takes 1..65535 frames")
     bf16_out = fast and (h, w) != (size, size)
-    (starts, weights, bands, th, tw, a, bb, rows, nb, most,
-     smem) = _tables(h, w, size, fast, b, x.device)
-    if smem > SMEM_MAX or most > MAX_BAND_SOURCE_ROWS:
-        raise ValueError(f"{h} x {w} -> {size}: a band of one row needs "
-                         f"{most} source rows and {smem} bytes of shared "
-                         f"memory; the kernel takes {MAX_BAND_SOURCE_ROWS} "
-                         f"and {SMEM_MAX}")
+    (starts, weights, bands, th, tw, a, bb, p, most,
+     strip_bytes) = _tables(h, w, size, fast, b, x.device, strips)
     lib = _build.library()
     out = torch.empty((b, size, size, c), device=x.device,
                       dtype=torch.bfloat16 if bf16_out else torch.float32)
@@ -328,7 +426,8 @@ def _cuda_preprocess(x: torch.Tensor, size: int,
         _build.check(lib.preprocess_frames_launch(
             x.data_ptr(), out.data_ptr(), b, h, w, size,
             starts.data_ptr(), weights.data_ptr(), bands.data_ptr(), th, tw,
-            rows, nb, most, smem, int(bf16_out),
+            p.rows, len(p.first), most, p.cols, len(p.lo), strip_bytes,
+            p.smem, int(bf16_out),
             f(a[0]), f(a[1]), f(a[2]), f(bb[0]), f(bb[1]), f(bb[2]),
             torch.cuda.current_stream().cuda_stream), "preprocess_frames")
         LAUNCHES["preprocess"] += 1

@@ -11,15 +11,27 @@ and the two-stage ``lax.top_k`` that ``_fused_cosine_topk_count`` and
   of 256-row tiles through a ring of stages filled by TMA, with the scores
   register-tiled as an SGEMM (2 rows x the batch a thread).  Rows at or
   past ``count`` score -1e30 and are never read.  It writes either the
-  dense scores or each segment's top-k partials;
+  dense scores or, for k up to ``LIST_K``, each segment's top-k partials;
 * ``cosine_topk_merge`` merges the partials into ``(values [B,k] f32,
   indices [B,k] int32)``, score descending, ties to the lower row index
   as ``lax.top_k`` breaks them.
 
+Above ``LIST_K`` a top-k takes the dense scores from the kernel and
+selects with a stable descending sort (``lax.top_k``'s order), as the JAX
+package leaves its top-k to ``lax.top_k`` outside the Pallas kernel.
+
+The store is float32, bfloat16 or float16 (``STORE_TYPES``), read in its
+own type and upcast to float32 in the kernel, as ``_score_kernel`` upcasts
+its store tile; the queries are float32.  Any width ``d`` is taken: the
+TMA copies need a row stride of a multiple of 16 bytes, so a store may be
+a view of the first ``d`` columns of rows kept wider (``padded_width``;
+``memory/embedding_store.py`` keeps its mirror so, and a search copies
+nothing); any other row-major store is copied into such rows first.
+
 What bounds it on the H100 is the store read: 200,000 x 512 float32 rows
-are 410 MB a call, so the kernel reads each row once for the whole query
-batch, keeps the next slices in flight while it scores this one, and never
-writes the [B,N] scores when it only needs the top-k.
+are 410 MB a call (bfloat16 205 MB), so the kernel reads each row once for
+the whole query batch, keeps the next slices in flight while it scores
+this one, and never writes the [B,N] scores when it only needs the top-k.
 
 Dispatch: a tensor on the CPU takes the plain version (``cosine_scores_ref``
 / ``cosine_topk_ref``: a float32 ``torch.matmul``, the mask, a stable sort);
@@ -27,9 +39,6 @@ a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches and ``REF_CALLS`` the wrapper's calls of the plain version, so a
 run can show which one served it.
 
-Limits of the kernel, checked before each launch: float32, contiguous,
-``d`` a multiple of 4 and at most 2048, ``k <= 64`` (the serving path asks
-for ``max(top_k_chunks, rerank_pool)``, 3 to 5 in the shipped configs).
 Query batches beyond what one launch takes (32 at d <= 512, fewer above,
 ``cosine_queries_per_launch``) are split into launches.
 """
@@ -43,7 +52,11 @@ from . import _build
 
 NEG = -1e30
 NO_INDEX = 0x7FFFFFFF          # a partial slot with no row (csrc kNoIndex)
-K_MAX = 64
+LIST_K = 64                    # the longest per-segment list (csrc kMaxK)
+# the store's element types, by the code the kernel takes
+STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# dense scores one selection above LIST_K holds at once
+SELECT_BYTES = 1 << 28
 
 # launches of cosine_score_tile by mode, and of cosine_topk_merge
 LAUNCHES: Dict[str, int] = {"score_topk": 0, "score_dense": 0, "merge": 0}
@@ -60,6 +73,13 @@ def reset_counts() -> None:
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     x = x.float()
     return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + eps)
+
+
+def padded_width(d: int, dtype: torch.dtype) -> int:
+    """Columns a row of ``d`` values of ``dtype`` is kept in so that rows
+    lie a multiple of 16 bytes apart, as the kernel's copies need."""
+    per16 = 16 // dtype.itemsize
+    return -(-d // per16) * per16
 
 
 # ---------------------------------------------------------------- plain
@@ -103,19 +123,20 @@ def cosine_topk(query: torch.Tensor, store: torch.Tensor, k: int,
     """Top-k cosine matches: ``(values [B,k] f32, indices [B,k] int32)``.
 
     Masked rows score -1e30; past the end of the store the result is
-    padded with -1e30 at index 0, as the JAX package pads it."""
+    padded with -1e30 at index 0, as the JAX package pads it.  ``k = 0``
+    gives empty results, as ``lax.top_k`` does."""
     global REF_CALLS
-    if not 0 < k <= K_MAX:
-        raise ValueError(f"k={k} outside 1..{K_MAX}, the kernel's bound")
+    if k < 0:
+        raise ValueError(f"k={k}: top-k takes k >= 0")
     b, n = _shapes(query, store)
     if n == 0:
         return (torch.full((b, k), NEG, dtype=torch.float32,
                            device=query.device),
                 torch.zeros((b, k), dtype=torch.int32, device=query.device))
     kk = min(k, n)
-    if b == 0:
-        vals = torch.zeros((0, kk), dtype=torch.float32, device=query.device)
-        idx = torch.zeros((0, kk), dtype=torch.int32, device=query.device)
+    if b == 0 or kk == 0:
+        vals = torch.zeros((b, kk), dtype=torch.float32, device=query.device)
+        idx = torch.zeros((b, kk), dtype=torch.int32, device=query.device)
     elif query.device.type == "cpu":
         REF_CALLS += 1
         vals, idx = cosine_topk_ref(query, store, kk, count)
@@ -147,22 +168,44 @@ def _count(count: Optional[int], n: int) -> int:
     return n if count is None else max(0, min(int(count), n))
 
 
-def _check_kernel_inputs(query: torch.Tensor, store: torch.Tensor) -> int:
-    """Raise on what the kernel does not take; return queries per launch."""
+def aligned_store(store: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``store`` as the kernel reads it, and the elements between its rows:
+    row-major, rows a multiple of 16 bytes apart from a 16-byte aligned
+    start.  A store that is not so is copied into zero-padded rows of
+    ``padded_width`` columns, of which the view keeps the first ``d``."""
+    if store.dtype not in STORE_TYPES:
+        raise ValueError(f"store is {store.dtype}; the kernel takes "
+                         "float32, bfloat16 or float16")
+    n, d = store.shape
+    if store.stride(1) != 1 and d > 1:
+        raise ValueError("store must be row-major (unit column stride)")
+    # a single row's stride is never used: any 16-byte multiple will do
+    ld = store.stride(0) if n > 1 else padded_width(d, store.dtype)
+    if (ld * store.element_size()) % 16 == 0 and ld >= d \
+            and store.data_ptr() % 16 == 0:
+        return store, ld
+    rows = torch.zeros((n, padded_width(d, store.dtype)), dtype=store.dtype,
+                       device=store.device)
+    rows[:, :d] = store
+    return rows[:, :d], rows.shape[1]
+
+
+def _check_kernel_inputs(query: torch.Tensor, store: torch.Tensor, k: int
+                         ) -> Tuple[torch.Tensor, int, int]:
+    """Raise on what the kernel does not take; return the store as it
+    reads it, its row stride and the queries a launch takes."""
+    if query.dtype != torch.float32:
+        raise ValueError(f"query is {query.dtype}; the kernel takes float32")
+    if not query.is_contiguous():
+        raise ValueError("query must be contiguous")
+    store, ld = aligned_store(store)
     d = query.shape[1]
-    for name, t in (("query", query), ("store", store)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    lib = _build.library()
-    max_dim = lib.cosine_max_dim()
-    if d % 4 or d > max_dim:
-        raise ValueError(f"d={d}: the kernel takes multiples of 4 up to "
-                         f"{max_dim}")
-    return lib.cosine_queries_per_launch(d)
+    per_launch = _build.library().cosine_queries_per_launch(
+        d, k, STORE_TYPES[store.dtype])
+    if per_launch < 1:
+        raise ValueError(f"d={d}: one query's row leaves no room for the "
+                         "kernel's ring of stages")
+    return store, ld, per_launch
 
 
 def segment_tiles(n: int, device: torch.device) -> int:
@@ -180,29 +223,71 @@ def segment_rows(n: int, device: torch.device) -> int:
     return segment_tiles(n, device) * _build.library().cosine_tile_rows()
 
 
+def _launch(query: torch.Tensor, store: torch.Tensor, ld: int, count: int,
+            k: int, tpb: int, out, part_vals, part_idx) -> None:
+    """One ``cosine_score_tile`` launch over ``query`` (at most a launch's
+    queries), ``tpb`` tiles a block, on the current stream."""
+    n, d = store.shape
+    _build.check(_build.library().cosine_score_tile_launch(
+        query.data_ptr(), store.data_ptr(), STORE_TYPES[store.dtype], ld,
+        query.shape[0], n, d, count, k, tpb, out, part_vals, part_idx,
+        torch.cuda.current_stream().cuda_stream), "cosine_score_tile")
+
+
 def _cuda_scores(query: torch.Tensor, store: torch.Tensor,
                  count: int) -> torch.Tensor:
-    per_launch = _check_kernel_inputs(query, store)
-    lib = _build.library()
+    store, ld, per_launch = _check_kernel_inputs(query, store, 0)
     b, n = query.shape[0], store.shape[0]
-    d = query.shape[1]
     out = torch.empty((b, n), dtype=torch.float32, device=query.device)
     tpb = segment_tiles(n, query.device)
     with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream().cuda_stream
         for s in range(0, b, per_launch):
-            qc = query[s:s + per_launch]
-            _build.check(lib.cosine_score_tile_launch(
-                qc.data_ptr(), store.data_ptr(), qc.shape[0], n, d, count,
-                0, tpb, out[s].data_ptr(), None, None, stream),
-                "cosine_score_tile")
+            _launch(query[s:s + per_launch], store, ld, count, 0, tpb,
+                    out[s].data_ptr(), None, None)
             LAUNCHES["score_dense"] += 1
     return out
 
 
 def _cuda_topk(query: torch.Tensor, store: torch.Tensor, k: int,
                count: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    return topk_merge(*topk_partials(query, store, k, count), k)
+    """The kernel's top-k of the first ``count`` rows; the rows past it
+    score -1e30 and tie, so they follow in row order, as ``lax.top_k``
+    puts them, and the kernel neither reads nor scores them."""
+    live = min(k, count)
+    if live == 0:
+        vals = torch.empty((query.shape[0], 0), device=query.device)
+        idx = torch.empty((query.shape[0], 0), dtype=torch.int32,
+                          device=query.device)
+    elif live <= LIST_K:
+        vals, idx = topk_merge(*topk_partials(query, store[:count], live,
+                                              count), live)
+    else:
+        vals, idx = _select(query, store[:count], live)
+    if live < k:
+        b = query.shape[0]
+        vals = torch.cat([vals, torch.full((b, k - live), NEG,
+                                           device=vals.device)], dim=1)
+        idx = torch.cat([idx, torch.arange(
+            count, count + k - live, dtype=torch.int32,
+            device=idx.device).expand(b, -1)], dim=1)
+    return vals, idx
+
+
+def _select(query: torch.Tensor, store: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Above the lists: the kernel's dense scores, then ``lax.top_k``'s
+    order (descending, ties to the lower row) by a stable sort, a block
+    of queries at a time."""
+    b, n = query.shape[0], store.shape[0]
+    step = max(1, SELECT_BYTES // (4 * n))
+    vals, idx = [], []
+    for s in range(0, b, step):
+        scores = _cuda_scores(query[s:s + step], store, n)
+        v, i = torch.sort(scores, dim=1, descending=True, stable=True)
+        vals.append(v[:, :k])
+        idx.append(i[:, :k].to(torch.int32))
+        del scores, v, i
+    return torch.cat(vals).contiguous(), torch.cat(idx).contiguous()
 
 
 # The two stages of the kernel path of ``cosine_topk``, on CUDA tensors,
@@ -212,24 +297,20 @@ def topk_partials(query: torch.Tensor, store: torch.Tensor, k: int,
                   count: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cosine_score_tile`` in top-k mode: each segment's top k as
     ``(part_vals [B,n_seg,k] f32, part_idx [B,n_seg,k] int32)``, a segment
-    being ``segment_rows(n, device)`` rows."""
-    per_launch = _check_kernel_inputs(query, store)
-    lib = _build.library()
+    being ``segment_rows(n, device)`` rows; k at most ``LIST_K``."""
+    if not 0 < k <= LIST_K:
+        raise ValueError(f"k={k}: the kernel keeps lists of 1..{LIST_K}")
+    store, ld, per_launch = _check_kernel_inputs(query, store, k)
     b, n = query.shape[0], store.shape[0]
-    d = query.shape[1]
     dev = query.device
     tpb = segment_tiles(n, dev)
-    n_seg = -(-n // (tpb * lib.cosine_tile_rows()))
+    n_seg = -(-n // (tpb * _build.library().cosine_tile_rows()))
     part_vals = torch.empty((b, n_seg, k), dtype=torch.float32, device=dev)
     part_idx = torch.empty((b, n_seg, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         for s in range(0, b, per_launch):
-            qc = query[s:s + per_launch]
-            _build.check(lib.cosine_score_tile_launch(
-                qc.data_ptr(), store.data_ptr(), qc.shape[0], n, d, count, k,
-                tpb, None, part_vals[s].data_ptr(), part_idx[s].data_ptr(),
-                stream), "cosine_score_tile")
+            _launch(query[s:s + per_launch], store, ld, count, k, tpb, None,
+                    part_vals[s].data_ptr(), part_idx[s].data_ptr())
             LAUNCHES["score_topk"] += 1
     return part_vals, part_idx
 

@@ -33,7 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..memory.embedding_store import EmbeddingStore
+from ..memory.embedding_store import EmbeddingStore, device_mirror
 from ..ops.topk_cosine import NEG, NO_INDEX, cosine_scores, cosine_topk
 from . import comm
 from .mesh import DATA_AXIS, axis_group, axis_rank, axis_size, data_sharded
@@ -75,10 +75,8 @@ class ShardedEmbeddingStore(EmbeddingStore):
             rows = self.shard_rows()
             lo = self._data_rank * rows
             shard = np.ascontiguousarray(self._padded_host()[lo:lo + rows])
-            mirror = torch.from_numpy(shard).to(self._device)
-            if self.dtype != torch.float32:
-                mirror = mirror.to(self.dtype).float()
-            self._mirror = mirror
+            self._mirror = None          # the old mirror's memory first
+            self._mirror = device_mirror(shard, self.dtype, self._device)
             self._mirror_dirty = False
         return self._mirror
 

@@ -355,8 +355,29 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    ``TPUVLMClient(preprocess="device")`` captioning one chunk of five 4K
    frames: kernel 2 once, no plain version.
 
-``--phases 14,15,16,17,18,19,20,21,22,23,24,25`` runs only the named
-phases of 14-25 (with the build): a partial run prints no kernels record and no
+26. attention domains: kernels 3, 4 and 5 at the inputs their TPU
+   kernels take and the port once refused.  Paths, each between a reset
+   and a read of the counts: ``TPUVLMClient(preset="tiny64", seed=0)``
+   (float32, 4 heads of 32) captions 4 chunks on the card through the
+   general forward (tokens equal to ``generate(..., flash=False)`` on the
+   card; against the port's CPU caption of the same frames, which the CPU
+   tests hold to the JAX package's: a differing row's teacher-forced
+   logits within ``TINY64_LOGIT_TOL`` and its first differing byte a
+   near-tie under ``TINY64_TIE``); ``train_torch_instruct_lm.py --smoke
+   --flash`` (2 heads of 32, bf16) for ``SMOKE_TRAIN_STEPS`` steps, the
+   general forward and backward, its first loss within
+   ``SMOKE_LOSS_TOL`` of the einsum path's; the tiny64 tower with
+   ``attn_impl='fused'`` (kernel 5's general route, within 1e-5 of the
+   einsum tower).  Then 3a and 3b/3c at hd 32 and 80 in float32 and
+   bfloat16 (B 2 x T 1033 x 8 heads) and at B x h = 65,600 (T 9, bf16 hd
+   64 on the wgmma kernels, float32 hd 32 on the general ones) against
+   the plain versions, kernel 5 at hd 32 float32 N 5, N 257 and 1025
+   bfloat16 and hd 80, kernel 4 at M 65 and 200 (one launch a 64-row
+   slab), each timed beside its bound, its plain version and the library
+   call (SDPA, cuBLAS bf16).
+
+``--phases 14,15,16,17,18,19,20,21,22,23,24,25,26`` runs only the named
+phases of 14-26 (with the build): a partial run prints no kernels record and no
 ``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
@@ -4805,9 +4826,406 @@ def phase_domains(tc, seed: int, card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 26
+# the general kernels' timed shapes: (B, T, h, hd), f32 and bf16, nv 8
+ATTN_DOMAIN_FLASH = [(2, 1033, 8, 32), (2, 1033, 8, 80)]
+# B x h = 65,600 at T 9: past the 65,535 of a grid's y dimension
+ATTN_DOMAIN_WIDE = (8200, 9, 8)
+# kernel 5's new inputs: (name, B, h, N, hd, dtype): the tiny64 tower's
+# heads (4 x 32, N 5, float32), ViT-B/32 at a 512 input (N 257), N 1025,
+# hd 80
+ATTN_DOMAIN_SHORT = [("b12_h4_n5_hd32_f32", 12, 4, 5, 32, torch.float32),
+                     ("b5_h12_n257_hd64_bf16", 5, 12, 257, 64,
+                      torch.bfloat16),
+                     ("b1_h12_n1025_hd64_bf16", 1, 12, 1025, 64,
+                      torch.bfloat16),
+                     ("b5_h8_n50_hd80_bf16", 5, 8, 50, 80, torch.bfloat16)]
+ATTN_DOMAIN_Q8 = (2048, 8192, (65, 200))
+# the tiny64 caption: 4 chunks of 3 frames of 64 x 64 (the tower's input:
+# normalised, not resized), from this seed; tests/test_torch_attention_
+# domains.py holds the port's CPU caption of the same frames to the JAX
+# package's
+TINY64_SEED, TINY64_SHAPE = 26, (4, 3, 64, 64, 3)
+# teacher-forced logits, card against CPU (float32, another summation
+# order), and the logit gap under which a differing byte is a near-tie
+TINY64_LOGIT_TOL, TINY64_TIE = 1e-4, 1e-3
+# the instruct trainer's smoke: steps, and its first loss against the
+# einsum path's
+SMOKE_TRAIN_STEPS, SMOKE_LOSS_TOL = 3, 1e-3
+
+
+def tiny64_chunks() -> list:
+    return [list(c) for c in np.random.default_rng(TINY64_SEED).integers(
+        0, 256, TINY64_SHAPE, dtype=np.uint8)]
+
+
+def tiny64_caption() -> dict:
+    """``TPUVLMClient(preset="tiny64", seed=0)`` captions 4 chunks on the
+    card between a reset and a read of the counts (the general forward
+    once a layer, no plain version); its tokens against ``generate(...,
+    flash=False)`` on the card (equal) and against the port's CPU
+    caption of the same frames (the JAX package's, by the CPU test): a
+    differing row's teacher-forced logits within ``TINY64_LOGIT_TOL`` of
+    the CPU's and its first differing byte a near-tie."""
+    from vidgraph_tpu_torch.core.platform import DEVICE_ENV
+    from vidgraph_tpu_torch.models import tokenizer
+    from vidgraph_tpu_torch.models.captioner import forward, generate
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    vlm = TPUVLMClient(preset="tiny64", seed=0)
+    chunks = tiny64_chunks()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    texts = vlm.caption_batch_sync(chunks)
+    wall = time.perf_counter() - t0
+    counts = {**fa.LAUNCHES, "plain": fa.REF_CALLS}
+    layers = vlm.cap_cfg.layers
+    assert counts["flash_fwd_general"] == layers and counts["flash_fwd"] \
+        == 0 and counts["plain"] == 0, counts
+    toks, vis = caption_tokens(vlm, chunks)
+    plain = generate(vlm._serve_params, vlm.cap_cfg, vis,
+                     max_new=vlm.max_new, flash=False)
+    assert torch.equal(toks, plain), "tiny64: flash and plain tokens differ"
+    assert [tokenizer.decode(r) for r in toks.cpu().numpy()] == texts
+    os.environ[DEVICE_ENV] = "cpu"
+    try:
+        cpu = TPUVLMClient(preset="tiny64", seed=0)
+        cpu_toks, cpu_vis = caption_tokens(cpu, chunks)
+    finally:
+        os.environ[DEVICE_ENV] = "cuda"
+    card, host = toks.cpu().numpy(), cpu_toks.numpy()
+    rows = []
+    for i in range(len(chunks)):
+        gap = caption_gap(cpu, cpu_vis[i], host[i].astype(np.int64),
+                          card[i].astype(np.int64))
+        row = {"chunk": i, "equal_tokens": gap is None}
+        if gap is not None:
+            s = gap["first_differing_step"]
+            ctx = torch.from_numpy(np.concatenate(
+                [[tokenizer.BOS_ID], host[i][:s]]).astype(np.int64))[None]
+            with torch.no_grad():
+                want = forward(cpu._serve_params, cpu.cap_cfg,
+                               cpu_vis[i][None], ctx)
+                got = forward(vlm._serve_params, vlm.cap_cfg, vis[i][None],
+                              ctx.cuda(), flash=True).cpu()
+            gap["logit_err"] = float((got - want).abs().max())
+            assert gap["logit_err"] <= TINY64_LOGIT_TOL, (i, gap)
+            assert abs(gap["logit_gap"]) <= TINY64_TIE, (i, gap)
+            row["gap"] = gap
+        rows.append(row)
+    return {"wall_s": wall, "launches": counts, "chunks": len(chunks),
+            "equal_flash_false": True, "rows": rows,
+            "equal_rows_cpu": sum(r["equal_tokens"] for r in rows),
+            "caption_bytes": [len(t.encode()) for t in texts]}
+
+
+def tiny64_fused_tower() -> dict:
+    """The tiny64 tower with ``attn_impl='fused'`` on the card, between a
+    reset and a read of the counts: kernel 5's general route once a
+    layer, within 1e-5 of the einsum tower (float32)."""
+    from vidgraph_tpu_torch.models import vit as tvit
+    from vidgraph_tpu_torch.ops import short_attention as sa
+    from vidgraph_tpu_torch.services.vlm_client import _TPU_VLM_PRESETS
+
+    cfg = tvit.ViTConfig(dtype=torch.float32, **_TPU_VLM_PRESETS["tiny64"][0])
+    einsum = tvit.init_vision_tower(cfg, 0, device=CUDA).eval()
+    fused = tvit.init_vision_tower(dataclasses.replace(
+        cfg, attn_impl="fused"), 0, device=CUDA).eval()
+    stack = np.concatenate(tiny64_chunks())
+    x = torch.from_numpy(stack).cuda().float() / 255.0
+    sa.reset_counts()
+    with torch.no_grad():
+        got = fused(x)
+        torch.cuda.synchronize()
+        counts = {**sa.LAUNCHES, "plain": sa.REF_CALLS}
+        want = einsum(x)
+    err = float((got - want).abs().max())
+    assert counts["short_attention_general"] == cfg.layers and \
+        counts["short_attention"] == 0 and counts["plain"] == 0, counts
+    assert err <= 1e-5, f"tiny64 fused tower: {err}"
+    return {"launches": counts, "max_abs_err": err}
+
+
+def train_smoke_flash(seed: int, tmp: Path) -> dict:
+    """``train_torch_instruct_lm.py --smoke --flash`` (width 64, 2 heads of
+    32, bf16: the general kernels, forward and backward) for
+    ``SMOKE_TRAIN_STEPS`` steps between a reset and a read of the counts;
+    its first loss against the einsum path's from the same seed weights."""
+    from vidgraph_tpu_torch.models.captioner import (CaptionerConfig,
+                                                     init_params)
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+
+    mod = load_script("train_torch_instruct_lm")
+    seq = 768
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    rec = mod.main(["--corpus", str(training_corpus(tmp, seed)),
+                    "--steps", str(SMOKE_TRAIN_STEPS), "--smoke", "--flash",
+                    "--seq-len", str(seq), "--max-new", "160",
+                    "--seed", str(seed), "--out", str(tmp / "smoke_lm.npz")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**fa.LAUNCHES, "plain": fa.REF_CALLS}
+    layers = rec["layers"]
+    fwd_want = layers * (SMOKE_TRAIN_STEPS + rec["held_evals"]
+                         * rec["held_buckets"] + rec["held_examples"])
+    assert rec["attention"] == "flash" and counts["plain"] == 0, counts
+    assert counts["flash_bwd_general"] == counts["flash_bwd_general_delta"] \
+        == counts["flash_bwd_general_dq_convert"] \
+        == layers * SMOKE_TRAIN_STEPS, counts
+    assert counts["flash_fwd_general"] == fwd_want, (counts, fwd_want)
+    assert counts["flash_fwd"] == counts["flash_bwd_fused"] == 0, counts
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    cfg = CaptionerConfig(width=64, layers=2, heads=2, vision_dim=64,
+                          num_vision_tokens=2, max_len=seq + 512)
+    params = init_params(cfg, seed, device=CUDA, requires_grad=True)
+    toks, plens = (torch.as_tensor(a, device="cuda")
+                   for a in rec["first_batch"])
+    with torch.no_grad():
+        loss_e = float(mod.instruct_loss(params, cfg, toks, plens, True,
+                                         False))
+    assert abs(loss_e - rec["losses"][0]) <= SMOKE_LOSS_TOL, \
+        (loss_e, rec["losses"][0])
+    return {"wall_s": wall, "steps": SMOKE_TRAIN_STEPS,
+            "losses": rec["losses"], "first_loss_einsum": loss_e,
+            "launches": counts, "flash_fwd_expected": fwd_want}
+
+
+def general_flash_row(fa, b, t, h, hd, dtype, rng) -> dict:
+    """Kernels 3a and 3b/3c general at [b, t, h, hd] of ``dtype``, nv 8:
+    the forward, its log-sum-exp and the three gradients against the
+    plain versions (``fa.tolerance``; float32 gradients within
+    ``BWD_TOL_F32``); then the times of the kernels, the plain versions
+    and SDPA, with bounds."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+
+    nv = 8
+    route = fa.flash_route(dtype, hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, t, h, hd), dtype=np.float32)).to("cuda", dtype)
+        for _ in range(4))
+    out, lse = fa._cuda_flash(q, k, v, nv, with_lse=True)
+    grads = fa._cuda_flash_bwd(q, k, v, out, lse, do, nv)
+    torch.cuda.synchronize()
+    tol_abs, tol_rel = fa.tolerance(dtype)
+    ref = fa.attention_ref(q, k, v, nv).to(dtype).float()
+    err = (out.float() - ref).abs()
+    assert bool(torch.isfinite(out).all()) and float(
+        (err - tol_abs - tol_rel * ref.abs()).max()) <= 0, \
+        f"general forward {b}x{t}x{h}x{hd} {dtype}: {float(err.max())}"
+    lse_err = float((lse - fa.lse_ref(q, k, nv)).abs().max())
+    assert lse_err <= (1e-5 if dtype == torch.float32 else 2e-3), lse_err
+    if dtype == torch.float32:
+        g_abs, g_rel = fa.BWD_TOL_F32_ABS, fa.BWD_TOL_F32_REL
+    else:
+        g_abs, g_rel = tol_abs, tol_rel
+    refs = fa.attention_bwd_ref(q, k, v, out, lse, do, nv)
+    g_err = 0.0
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        want = want.to(dtype).float()
+        diff = (got.float() - want).abs()
+        assert got.dtype == dtype and float(
+            (diff - g_abs - g_rel * want.abs()).max()) <= 0, \
+            f"general backward {name} {b}x{t}x{h}x{hd} {dtype}: " \
+            f"{float(diff.max())}"
+        g_err = max(g_err, float(diff.max()))
+    row = {"route": route, "max_abs_err": float(err.max()),
+           "lse_err": lse_err, "bwd_max_abs_err": g_err}
+    del ref, refs, err
+    pairs = visible_pairs(t, nv)
+    elem = torch.finfo(dtype).bits // 8
+    tensor, vec = b * t * h * hd * elem, b * h * t * 4
+    product = 2.0 * b * h * hd * pairs
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    mask = fa.prefix_causal_mask(t, nv, q.device)
+    row.update({
+        "kernel_ms": cuda_ms(lambda: fa._cuda_flash(q, k, v, nv)),
+        "plain_ms": cuda_ms(lambda: fa.attention_ref(q, k, v, nv),
+                            reps=5),
+        **library_sdpa(q, k, v, mask),
+        **bound(4 * tensor, 2 * product, peak),
+        "bwd_ms": cuda_ms(lambda: fa._cuda_flash_bwd(
+            q, k, v, out, lse, do, nv), reps=10),
+        "plain_bwd_ms": cuda_ms(lambda: fa.attention_bwd_ref(
+            q, k, v, out, lse, do, nv), reps=3, warmup=1),
+        # q, k, v, o, dO, L in, dq, dk, dv out, 5 products
+        "bwd_bound": bound(8 * tensor + vec, 5 * product, peak)})
+    delta, acc = fa._cuda_general_delta(out, do)
+    scale = 1.0 / math.sqrt(hd)
+    # the two small stages' device times from CUDA-graph replay:
+    # CUDA events around one call time its host launch
+    row["stages"] = {
+        "delta": {
+            "ms": graph_ms(lambda: fa._cuda_general_delta(out, do)),
+            "plain_ms": graph_ms(
+                lambda: (do.float() * out.float()).sum(-1)
+                .transpose(1, 2).contiguous()),
+            # o and dO in, delta out, the accumulator zeroed
+            **bound(2 * tensor + vec + b * t * h * hd * 4,
+                    2.0 * b * t * h * hd, F32_FLOPS)},
+        "bwd": {
+            "ms": cuda_ms(lambda: fa._cuda_general_bwd(
+                q, k, v, do, lse, delta, acc, nv), reps=10),
+            # q, k, v, dO, L, delta in; dk, dv, the accumulator out
+            **bound(6 * tensor + 2 * vec + b * t * h * hd * 4,
+                    5 * product, peak)},
+        "dq_convert": {
+            "ms": graph_ms(lambda: fa._cuda_general_dq_convert(
+                acc, dtype)),
+            "plain_ms": graph_ms(lambda: (acc * scale).to(dtype)),
+            **bound(b * t * h * hd * 4 + tensor, 0.0, F32_FLOPS)}}
+    del delta, acc
+    sdpa = library_sdpa_train(q, k, v, do, mask)
+    row.update({"library_bwd_ms": sdpa["library_bwd_ms"],
+                "library_fwd_bwd_ms": sdpa["library_fwd_bwd_ms"]})
+    del q, k, v, do, out, lse, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def wide_heads_row(fa, b, t, h, hd, dtype, rng) -> dict:
+    """Kernels 3a and 3b/3c at B x h past 65,535 (the grid's y limit):
+    the forward within ``fa.tolerance`` of the plain version; the output
+    and the gradients bit for bit those of the two half batches (no fold;
+    at T <= 64 one key tile adds into each dq element once); the
+    gradients' Frobenius error within ``BWD_REL_FRO`` of the plain norm."""
+    nv = 8
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, t, h, hd), dtype=np.float32)).to("cuda", dtype)
+        for _ in range(4))
+
+    def run(s):
+        out, lse = fa._cuda_flash(q[s], k[s], v[s], nv, with_lse=True)
+        return (out, lse, *fa._cuda_flash_bwd(q[s], k[s], v[s], out, lse,
+                                              do[s], nv))
+
+    whole = run(slice(None))
+    halves = [run(slice(0, b // 2)), run(slice(b // 2, b))]
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, torch.cat([hv[i] for hv in halves]))
+               for i, x in enumerate(whole))
+    assert same, f"{b} x {h} heads: the folded grid differs from halves"
+    out, lse, *grads = whole
+    tol_abs, tol_rel = fa.tolerance(dtype)
+    ref = fa.attention_ref(q, k, v, nv).to(dtype).float()
+    err = (out.float() - ref).abs()
+    fwd_err = float(err.max())
+    assert float((err - tol_abs - tol_rel * ref.abs()).max()) <= 0, \
+        f"{b} x {h} heads forward: {fwd_err}"
+    fro = 0.0
+    for got, want in zip(grads, fa.attention_bwd_ref(q, k, v, out, lse, do,
+                                                     nv)):
+        want = want.to(dtype).float()
+        fro = max(fro, float((got.float() - want).norm())
+                  / float(want.norm()))
+    assert fro <= BWD_REL_FRO, f"{b} x {h} heads backward: {fro}"
+    del q, k, v, do, whole, halves, ref, err
+    torch.cuda.empty_cache()
+    return {"route": fa.flash_route(dtype, hd), "heads": b * h,
+            "max_abs_err": fwd_err, "equal_to_halves": same,
+            "bwd_rel_fro": fro}
+
+
+def phase_attention_domains(seed: int, card: str) -> dict:
+    """Kernels 3, 4 and 5 at the inputs their TPU kernels take and the
+    port once refused: the paths that reach them (the tiny64 caption, the
+    instruct trainer's smoke with ``--flash``, the tiny64 tower fused),
+    each between a reset and a read of the counts, then every new input
+    against its plain version, timed beside its bound, the plain version
+    and the library call."""
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+    from vidgraph_tpu_torch.models import quant8
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import q8_matmul as q8
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    rng = np.random.default_rng(seed + 26)
+    res = {"tiny64_caption": tiny64_caption(),
+           "tiny64_fused_tower": tiny64_fused_tower()}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["train_smoke_flash"] = train_smoke_flash(seed, Path(tmp))
+
+    fa.reset_counts()
+    flash = {}
+    for b, t, h, hd in ATTN_DOMAIN_FLASH:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"b{b}_T{t}_h{h}x{hd}_{str(dtype)[6:]}"
+            flash[name] = general_flash_row(fa, b, t, h, hd, dtype, rng)
+    b, t, h = ATTN_DOMAIN_WIDE
+    for hd, dtype in ((64, torch.bfloat16), (32, torch.float32)):
+        name = f"b{b}_T{t}_h{h}x{hd}_{str(dtype)[6:]}"
+        flash[name] = wide_heads_row(fa, b, t, h, hd, dtype, rng)
+    res["flash"] = flash
+    res["flash_timing_calls"] = {**fa.LAUNCHES, "plain": fa.REF_CALLS}
+    assert fa.REF_CALLS == 0
+
+    sa.reset_counts()
+    short = {}
+    for name, b, h, n, hd, dtype in ATTN_DOMAIN_SHORT:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, h, n, hd), dtype=np.float32)).to("cuda", dtype)
+            for _ in range(3))
+        assert sa.short_route(dtype, hd, n) == "general", name
+        got = sa.fused_short_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = sa.short_attention_ref(q, k, v).float()
+        tol_abs, tol_rel = sa.tolerance(dtype)
+        err = (got.float() - ref).abs()
+        assert bool(torch.isfinite(got).all()) and float(
+            (err - tol_abs - tol_rel * ref.abs()).max()) <= 0, \
+            f"short attention {name}: {float(err.max())}"
+        elem = torch.finfo(dtype).bits // 8
+        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        short[name] = {
+            "max_abs_err": float(err.max()),
+            "kernel_ms": graph_ms(lambda: sa.fused_short_attention(q, k, v)),
+            "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
+            "library_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)),
+            **bound(4 * b * h * n * hd * elem, 4.0 * b * h * n * n * hd,
+                    peak)}
+        del q, k, v, got, ref, err
+    res["short"] = short
+    res["short_timing_calls"] = {**sa.LAUNCHES, "plain": sa.REF_CALLS}
+    assert sa.REF_CALLS == 0
+
+    k, n, ms = ATTN_DOMAIN_Q8
+    w = torch.from_numpy(rng.standard_normal(
+        (k, n), dtype=np.float32) * 0.02).cuda()
+    wq = quant8.quantize_matrix(w)
+    qs = [wq.q.clone() for _ in range(Q8_COPIES)]
+    ws = [w.to(torch.bfloat16) for _ in range(Q8_COPIES)]
+    q8rows = {}
+    for m in ms:
+        x = torch.from_numpy(rng.standard_normal(
+            (m, k), dtype=np.float32)).to("cuda", torch.bfloat16)
+        q8.reset_counts()
+        err, top = check_q8(q8, x, wq.q, wq.s)
+        assert q8.LAUNCHES["q8_matmul"] == 2 * len(q8.slabs(m)), q8.LAUNCHES
+        q8rows[f"K{k}_N{n}_M{m}"] = {
+            "max_abs_err": err, "max_rel_err": err / top,
+            "launches_a_call": len(q8.slabs(m)),
+            "kernel_ms": graph_ms(rotating(
+                lambda qq: q8.q8_matmul(x, qq, wq.s), qs)),
+            "plain_ms": graph_ms(rotating(
+                lambda qq: q8.q8_matmul_ref(x, qq, wq.s), qs)),
+            "cublas_bf16_ms": graph_ms(rotating(lambda vv: x @ vv, ws)),
+            **bound(k * n + 2 * m * k + 4 * n + 4 * m * n, 2.0 * m * k * n,
+                    BF16_FLOPS)}
+    res["q8"] = q8rows
+    res["q8_timing_calls"] = {**q8.LAUNCHES, "plain": q8.REF_CALLS}
+    del w, wq, qs, ws
+    torch.cuda.empty_cache()
+    log(f"phase 26: kernels 3, 4 and 5 at their full domains on {card} "
+        f"(ms; flash rows CUDA-event medians, short and q8 rows device "
+        f"time from CUDA-graph replay): {json.dumps(res)}")
+    return res
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   quant, bwd, training, streams, tooling, mesh,
-                  leader, domains) -> dict:
+                  leader, domains, attn) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -4861,6 +5279,73 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     jax_flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     bwd_timed = ("B=8, T=3080, 8 heads x 64, bf16, nv=8 (the instruct "
                  "trainer's long bucket)")
+    # phase 26's paths: the tiny64 caption and the instruct smoke (the
+    # general flash kernels), the tiny64 tower fused (kernel 5's general
+    # route); kernel 4's slabs are reached by direct calls only
+    gen_src = "vidgraph_tpu_torch/csrc/attention_general.cu"
+    cap64 = attn["tiny64_caption"]["launches"]
+    smoke = attn["train_smoke_flash"]["launches"]
+    grow = attn["flash"]["b2_T1033_h8x32_float32"]
+    gen_timed = "B=2, T=1033, 8 heads x 32, float32, nv=8"
+    gen_rows = [r for r in attn["flash"].values() if r["route"] == "general"]
+    gen_err = max(r["max_abs_err"] for r in gen_rows)
+    gen_bwd_err = max(r["bwd_max_abs_err"] for r in gen_rows
+                      if "bwd_max_abs_err" in r)
+    srow = attn["short"]["b5_h12_n257_hd64_bf16"]
+    q8wide = attn["q8"]["K2048_N8192_M200"]
+
+    def stage(name):
+        return {key: grow["stages"][name][key]
+                for key in ("ms", "bound_ms", "bound_by")}
+    general = [
+        {"name": "attn_general_fwd (flash route)", "route": "cuda",
+         "source": gen_src, "replaces": "vidgraph_tpu/models/captioner.py:191",
+         "launches": cap64["flash_fwd_general"]
+                     + smoke["flash_fwd_general"],
+         "tiny64_caption_launches": cap64["flash_fwd_general"],
+         "train_smoke_launches": smoke["flash_fwd_general"],
+         "max_abs_err": gen_err, "ms": grow["kernel_ms"],
+         "plain_ms": grow["plain_ms"], "library_ms": grow["library_ms"],
+         "library_kernels": grow["library_kernels"],
+         "bound_ms": grow["bound_ms"], "bound_by": grow["bound_by"],
+         "timed": gen_timed},
+        {"name": "attn_general_bwd_delta", "route": "cuda", "source": gen_src,
+         "replaces": bwd_site, "replaces_in_jax": jax_flash + ":273",
+         "launches": smoke["flash_bwd_general_delta"],
+         "max_abs_err": gen_bwd_err,
+         "plain_ms": grow["stages"]["delta"]["plain_ms"],
+         "library_ms": None, **stage("delta"),
+         "timed": gen_timed + "; device time from CUDA-graph replay"},
+        {"name": "attn_general_bwd", "route": "cuda", "source": gen_src,
+         "replaces": bwd_site,
+         "replaces_in_jax": jax_flash + ":1121 and :1456",
+         "launches": smoke["flash_bwd_general"],
+         "max_abs_err": gen_bwd_err, "plain_ms": grow["plain_bwd_ms"],
+         "library_ms": grow["library_bwd_ms"], **stage("bwd"),
+         "backward_ms": grow["bwd_ms"],
+         "timed": gen_timed + "; plain_ms and library_ms are of the whole "
+                  "backward (attention_bwd_ref; SDPA's forward + backward "
+                  "less its forward)"},
+        {"name": "attn_general_dq_convert", "route": "cuda",
+         "source": gen_src, "replaces": bwd_site,
+         "replaces_in_jax": jax_flash + ":1456",
+         "launches": smoke["flash_bwd_general_dq_convert"],
+         "max_abs_err": gen_bwd_err,
+         "plain_ms": grow["stages"]["dq_convert"]["plain_ms"],
+         "library_ms": None, **stage("dq_convert"),
+         "timed": gen_timed + "; device time from CUDA-graph replay"},
+        {"name": "attn_general_fwd (short-attention route, two passes)",
+         "route": "cuda", "source": gen_src,
+         "replaces": "vidgraph_tpu/ops/short_attention.py:119",
+         "launches": attn["tiny64_fused_tower"]["launches"][
+             "short_attention_general"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in attn["short"].values()),
+         "ms": srow["kernel_ms"], "plain_ms": srow["plain_ms"],
+         "library_ms": srow["library_ms"], "bound_ms": srow["bound_ms"],
+         "bound_by": srow["bound_by"],
+         "timed": "B=5 x 12 heads, N=257, hd=64, bf16 (device time, CUDA "
+                  "graph)"}]
     return {"kernels": [
         {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
          "source": src, "replaces": replaces,
@@ -5004,6 +5489,11 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "a16_ms": q8row["a16_ms"],
          "cublas_bf16_ms": q8row["cublas_bf16_ms"],
          "bound_ms": q8row["bound_ms"], "bound_by": q8row["bound_by"],
+         "rows_past_64": {"timed": "M=200 (4 slabs of at most 64 rows), "
+                                   "K=2048, N=8192, direct calls",
+                          "timing_launches":
+                              attn["q8_timing_calls"]["q8_matmul"],
+                          **q8wide},
          "timed": "M=32, K=2048, N=8192 (fc1 of CaptionerConfig.large()), "
                   "20 copies of the weights in turn"},
         {"name": "flash_bwd_delta", "route": "cuda", "source": bwd_src,
@@ -5037,6 +5527,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "ms": brow["convert_ms"], "plain_ms": brow["plain_convert_ms"],
          "library_ms": None, **brow["bound"]["convert"],
          "timed": bwd_timed + "; dq = bf16(accumulator / sqrt(hd))"},
+        *general,
     ]}
 
 
@@ -5046,7 +5537,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-25 "
+                    help="development: run only these of phases 14-26 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5087,9 +5578,10 @@ def main() -> int:
             22: lambda: phase_mesh(tc, args.seed, card),
             23: lambda: phase_leader(tc, args.seed, card),
             24: lambda: phase_seeded(args.seed, card),
-            25: lambda: phase_domains(tc, args.seed, card)}
+            25: lambda: phase_domains(tc, args.seed, card),
+            26: lambda: phase_attention_domains(args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 25")
+        ap.error("--phases takes 14 to 26")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -5131,10 +5623,12 @@ def main() -> int:
     log(f"phases 1-24 done at {time.perf_counter() - t0:.1f} s")
     domains = late[25]()
     log(f"phases 1-25 done at {time.perf_counter() - t0:.1f} s")
+    attn = late[26]()
+    log(f"phases 1-26 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training, streams, tooling,
-                           mesh, leader, domains)
+                           mesh, leader, domains, attn)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -5149,7 +5643,7 @@ def main() -> int:
         "vit_b160": {k: v for k, v in tooling["vit_b160"].items()
                      if k != "profile"},
         "mesh": mesh, "leader": leader, "seeded": seeded,
-        "domains": domains,
+        "domains": domains, "attention_domains": attn,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

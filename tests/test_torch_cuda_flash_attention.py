@@ -15,6 +15,13 @@ once on the way out, where ``attention_bwd_ref`` is float32 throughout:
 the same tolerance against the plain gradients rounded to bfloat16, and,
 since the gradients of late rows are far below ``TOL_ABS``, also a
 Frobenius error of at most ``BWD_REL_FRO`` of the gradient's norm.
+
+The general kernels (``csrc/attention_general.cu``: float32, float16 and
+every head dim the wgmma kernels do not take) keep those roundings in the
+input's type: ``fa.tolerance`` gives float16 the bfloat16 tolerance
+scaled by the types' last places (2^-10 / 2^-7), and float32 (no
+rounding, another summation order) 1e-5 for the forward and
+``BWD_TOL_F32_ABS + BWD_TOL_F32_REL * |plain|`` for the gradients.
 """
 import math
 
@@ -37,22 +44,26 @@ def dev():
     return torch.device("cuda")
 
 
-def _qkv(b, t, h, seed, dev, qk_scale=1.0, hd=64):
+def _qkv(b, t, h, seed, dev, qk_scale=1.0, hd=64, dtype=torch.bfloat16):
     """q, k, v from a numpy seed; q and k scaled by ``qk_scale``, v of
     unit scale (the tolerance's scale)."""
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(
         (rng.normal(size=(b, t, h, hd)) * s).astype(np.float32)
-    ).to(dev, torch.bfloat16) for s in (qk_scale, qk_scale, 1.0)]
+    ).to(dev, dtype) for s in (qk_scale, qk_scale, 1.0)]
 
 
 def _assert_close(q, k, v, nv):
+    """The kernel against the plain version rounded to the input's type,
+    within ``fa.tolerance`` of that type."""
     got = fa.flash_attention(q, k, v, nv)
     torch.cuda.synchronize()
-    ref = fa.attention_ref(q, k, v, nv).to(torch.bfloat16).float()
+    assert got.dtype == q.dtype
+    ref = fa.attention_ref(q, k, v, nv).to(q.dtype).float()
     got = got.float()
     assert torch.isfinite(got).all()
-    excess = (got - ref).abs() - (fa.TOL_ABS + fa.TOL_REL * ref.abs())
+    tol_abs, tol_rel = fa.tolerance(q.dtype)
+    excess = (got - ref).abs() - (tol_abs + tol_rel * ref.abs())
     assert float(excess.max()) <= 0, float((got - ref).abs().max())
 
 
@@ -109,27 +120,38 @@ def test_prefix_rows_see_the_whole_prefix(dev):
     torch.testing.assert_close(out, want, atol=2e-2, rtol=0)
 
 
+GENERAL_NONE = {"flash_fwd_general": 0, "flash_bwd_general_delta": 0,
+                "flash_bwd_general": 0, "flash_bwd_general_dq_convert": 0}
+
+
 def test_launch_counts_and_no_plain_calls(dev):
     q, k, v = _qkv(1, 100, 2, 0, dev)
     fa.reset_counts()
     fa.flash_attention(q, k, v, 8)
     none = {"flash_bwd_delta": 0, "flash_bwd_fused": 0,
-            "flash_bwd_dq_convert": 0}
+            "flash_bwd_dq_convert": 0, **GENERAL_NONE}
     assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 0
     fa.flash_attention(q, k, v, 8, flash=False)
     assert fa.LAUNCHES == {"flash_fwd": 1, **none} and fa.REF_CALLS == 1
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
+    """float32 and a head dim of 32, once refused, now compute on the
+    general kernel (what the JAX package computes); a non-contiguous view
+    and mismatched shapes are still refused."""
     q, k, v = _qkv(1, 100, 2, 0, dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q.float(), k.float(), v.float(), 8)
+    fa.reset_counts()
+    for qq, kk, vv in ((q.float(), k.float(), v.float()),
+                       (q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())):
+        got = fa.flash_attention(qq, kk, vv, 8)
+        torch.cuda.synchronize()
+        assert got.dtype == qq.dtype
+        _assert_close(qq, kk, vv, 8)
+    assert fa.LAUNCHES["flash_fwd_general"] == 4 and fa.REF_CALLS == 0
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), 8)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                           v[..., :32].contiguous(), 8)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v[:, :50], 8)
 
@@ -145,23 +167,34 @@ def _grads(q, k, v, nv, do):
     return out.detach(), grads
 
 
-def _assert_backward_close(b, t, h, hd, nv, dev, qk_scale=1.0):
-    q, k, v = _qkv(b, t, h, 31 * t + nv + hd, dev, qk_scale, hd)
-    do = _qkv(b, t, h, t + 5, dev, hd=hd)[2]
+def _assert_backward_close(b, t, h, hd, nv, dev, qk_scale=1.0,
+                           dtype=torch.bfloat16):
+    q, k, v = _qkv(b, t, h, 31 * t + nv + hd, dev, qk_scale, hd, dtype)
+    do = _qkv(b, t, h, t + 5, dev, hd=hd, dtype=dtype)[2]
     out, grads = _grads(q, k, v, nv, do)
     lse = fa._cuda_flash(q, k, v, nv, with_lse=True)[1]
     torch.cuda.synchronize()
-    torch.testing.assert_close(lse, fa.lse_ref(q, k, nv), atol=2e-3, rtol=0)
+    lse_tol = 2e-3 if dtype != torch.float32 else 1e-5
+    torch.testing.assert_close(lse, fa.lse_ref(q, k, nv), atol=lse_tol,
+                               rtol=0)
     refs = fa.attention_bwd_ref(q, k, v, out, lse, do, nv)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
-        got, ref = got.float(), ref.to(torch.bfloat16).float()
+        assert got.dtype == dtype, name
+        got, ref = got.float(), ref.to(dtype).float()
         assert torch.isfinite(got).all(), name
         err = (got - ref).abs()
-        # TOL_ABS is for operands of unit scale: dS is rounded to bfloat16
-        # before it multiplies k (for dq) and q (for dk), so that error
-        # grows with their scale, as the forward's grows with |v|
-        tol_abs = fa.TOL_ABS * (1.0 if name == "dv" else qk_scale)
-        excess = err - (tol_abs + fa.TOL_REL * ref.abs())
+        if dtype == torch.float32:
+            # float32 products and sums in both, in another order
+            excess = err - (fa.BWD_TOL_F32_ABS * max(qk_scale, 1.0)
+                            + fa.BWD_TOL_F32_REL * ref.abs())
+            assert float(excess.max()) <= 0, (name, float(err.max()))
+            continue
+        tol_abs, tol_rel = fa.tolerance(dtype)
+        # tol_abs is for operands of unit scale: dS is rounded to the input
+        # type before it multiplies k (for dq) and q (for dk), so that
+        # error grows with their scale, as the forward's grows with |v|
+        tol_abs *= 1.0 if name == "dv" else qk_scale
+        excess = err - (tol_abs + tol_rel * ref.abs())
         assert float(excess.max()) <= 0, (name, float(err.max()))
         # rms error against rms gradient; the floor is for a gradient that
         # is zero but for rounding (dq and dk at T = 1, where P = 1)
@@ -242,7 +275,8 @@ def test_backward_launch_counts(dev):
     fa.reset_counts()
     _grads(q, k, v, 8, torch.ones_like(q))
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_delta": 1,
-                           "flash_bwd_fused": 1, "flash_bwd_dq_convert": 1}
+                           "flash_bwd_fused": 1, "flash_bwd_dq_convert": 1,
+                           **GENERAL_NONE}
     assert fa.REF_CALLS == 0
     fa.reset_counts()
     with torch.no_grad():
@@ -263,10 +297,17 @@ def test_backward_without_delta_is_caught(dev):
 
 
 def test_backward_rejects_what_it_cannot_take(dev):
+    """float32, once refused, now trains through the general kernels; a
+    non-contiguous view, a gradient of another type and a residual of
+    another layout are still refused."""
     q, k, v = _qkv(1, 100, 2, 0, dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q.float().requires_grad_(True), k.float(),
-                           v.float(), 8)
+    fa.reset_counts()
+    qf = q.float().requires_grad_(True)
+    out = fa.flash_attention(qf, k.float(), v.float(), 8)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert qf.grad.dtype == torch.float32
+    assert fa.LAUNCHES["flash_bwd_general"] == 1 and fa.REF_CALLS == 0
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2).requires_grad_(True),
                            k.transpose(1, 2), v.transpose(1, 2), 8)
@@ -275,6 +316,113 @@ def test_backward_rejects_what_it_cannot_take(dev):
         fa._cuda_flash_bwd(q, k, v, out, lse, out.float(), 8)
     with pytest.raises(ValueError):
         fa._cuda_flash_bwd(q, k, v, out, lse.transpose(1, 2), out, 8)
+
+
+# ------------------------------------------- the general kernels' domain
+# head dims the wgmma kernels do not take: below 64 (the tiny and tiny64
+# captioners' 16 and 32), between (80: width 640 / 8 heads; 127), above
+# (256, 512: multiples of 128 as the TPU kernel takes them) and 1
+GENERAL_HEAD_DIMS = [1, 16, 32, 80, 127, 256, 512]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hd", GENERAL_HEAD_DIMS)
+@pytest.mark.parametrize("b,t,nv", [(2, 9, 8), (1, 130, 8), (2, 70, 0),
+                                    (1, 200, 100)])
+def test_general_forward_matches_plain(dev, dtype, hd, b, t, nv):
+    """Every float type and head dim the TPU kernel takes, T across tiles,
+    prefixes past a tile: the output within ``fa.tolerance`` (float32
+    within 1e-5) and the log-sum-exp."""
+    q, k, v = _qkv(b, t, 2, hd + t + nv, dev, hd=hd, dtype=dtype)
+    assert fa.flash_route(dtype, hd) == "general"
+    fa.reset_counts()
+    _assert_close(q, k, v, nv)
+    out, lse = fa._cuda_flash(q, k, v, nv, with_lse=True)
+    torch.cuda.synchronize()
+    lse_tol = 2e-3 if dtype != torch.float32 else 1e-5
+    torch.testing.assert_close(lse, fa.lse_ref(q, k, nv), atol=lse_tol,
+                               rtol=0)
+    assert torch.equal(out, fa.flash_attention(q, k, v, nv))
+    assert fa.LAUNCHES["flash_fwd_general"] == 3 and fa.LAUNCHES[
+        "flash_fwd"] == 0 and fa.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16], ids=str)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_float16_at_the_wgmma_widths(dev, dtype, hd):
+    """float16 at hd 64 and 128 takes the general kernels."""
+    assert fa.flash_route(dtype, hd) == "general"
+    _assert_close(*_qkv(2, 100, 2, hd, dev, hd=hd, dtype=dtype), 8)
+    _assert_backward_close(1, 70, 2, hd, 8, dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hd", [16, 32, 80, 256])
+@pytest.mark.parametrize("t,nv", [(1, 8), (9, 8), (65, 0), (130, 70)])
+def test_general_backward_matches_plain(dev, dtype, hd, t, nv):
+    """The general backward (delta, dk and dv a key tile at a time with dq
+    by atomics, dq's conversion) against ``attention_bwd_ref``."""
+    fa.reset_counts()
+    _assert_backward_close(2, t, 2, hd, nv, dev, dtype=dtype)
+    assert fa.LAUNCHES["flash_bwd_general"] == 1
+    assert fa.LAUNCHES["flash_bwd_fused"] == 0 and fa.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 32)], ids=str)
+def test_batch_times_heads_past_the_grid_limit(dev, dtype, hd):
+    """B x h = 65,600 at T = 9 (a grid's y dimension stops at 65,535):
+    both routes.  The forward within the tolerance of the plain version;
+    the output and the three gradients bit for bit those of the two half
+    batches (32,800 heads each, no fold; at T = 9 one key tile adds into
+    each dq element once, so dq is deterministic too), and the gradients'
+    Frobenius error within ``BWD_REL_FRO`` of the plain norm (float32
+    within its element tolerance)."""
+    b, h = 8200, 8
+    q, k, v = _qkv(b, 9, h, 3, dev, hd=hd, dtype=dtype)
+    _assert_close(q, k, v, 8)
+    do = _qkv(b, 9, h, 4, dev, hd=hd, dtype=dtype)[2]
+    out, grads = _grads(q, k, v, 8, do)
+    halves = [_grads(q[s], k[s], v[s], 8, do[s])
+              for s in (slice(0, b // 2), slice(b // 2, b))]
+    assert torch.equal(out, torch.cat([o for o, _ in halves]))
+    for i, got in enumerate(grads):
+        assert torch.equal(got, torch.cat([g[i] for _, g in halves])), i
+    lse = fa._cuda_flash(q, k, v, 8, with_lse=True)[1]
+    refs = fa.attention_bwd_ref(q, k, v, out, lse, do, 8)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        ref = ref.to(dtype).float()
+        err = (got.float() - ref).abs()
+        if dtype == torch.float32:
+            excess = err - (fa.BWD_TOL_F32_ABS
+                            + fa.BWD_TOL_F32_REL * ref.abs())
+            assert float(excess.max()) <= 0, name
+        assert float(err.norm()) <= BWD_REL_FRO * float(ref.norm()), name
+
+
+def test_tiny64_captions_on_the_card(dev):
+    """The ``tiny64`` preset (float32, 4 heads of 32) captions on the card
+    through the general forward, with the tokens of the plain prefill."""
+    from vidgraph_tpu_torch.models.captioner import generate
+    from vidgraph_tpu_torch.services.vlm_client import TPUVLMClient
+
+    vlm = TPUVLMClient(preset="tiny64", seed=0, max_new=24)
+    rng = np.random.default_rng(0)
+    chunks = [list(rng.integers(0, 256, (3, 48, 64, 3), dtype=np.uint8))
+              for _ in range(4)]
+    fa.reset_counts()
+    texts = vlm.caption_batch_sync(chunks)
+    assert len(texts) == 4 and fa.REF_CALLS == 0
+    assert fa.LAUNCHES["flash_fwd_general"] == vlm.cap_cfg.layers
+    emb = vlm.embed_frames(vlm.host_frames(chunks))
+    vis = vlm.vision_prefixes(chunks, emb)
+    flash = generate(vlm._serve_params, vlm.cap_cfg, vis, max_new=24)
+    plain = generate(vlm._serve_params, vlm.cap_cfg, vis, max_new=24,
+                     flash=False)
+    assert torch.equal(flash, plain)
 
 
 # ------------------------------------------------ the kernels in the model

@@ -125,20 +125,44 @@ def test_float32_activations_are_rounded_to_bf16(dev):
 
 
 def test_counts_and_refusals(dev):
+    """72 rows, once refused, are two launches (64 + 8 rows)."""
     x, q, s = _inputs(8, 512, 512, 1, dev)
     q8.reset_counts()
     q8.q8_matmul(x, q, s)
     q8._cuda_q8_matmul(x, q, s, cluster=4)
     assert q8.LAUNCHES["q8_matmul"] == 2 and q8.REF_CALLS == 0
-    with pytest.raises(ValueError):
-        q8.q8_matmul(torch.cat([x] * 9), q, s)            # 72 rows
+    x72 = torch.cat([x] * 9)
+    got = q8.q8_matmul(x72, q, s)                         # 72 rows
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.cat([q8.q8_matmul(x, q, s)] * 9))
+    assert q8.LAUNCHES["q8_matmul"] == 2 + 2 + 1
     with pytest.raises(ValueError):
         q8._cuda_q8_matmul(x, q, s, cluster=9)               # 8 tiles only
     with pytest.raises(ValueError):
         q8.q8_matmul(x, q.t(), s)                         # not contiguous
     with pytest.raises(ValueError):
         q8.q8_matmul(x.cpu(), q, s)
-    assert q8.LAUNCHES["q8_matmul"] == 2 and q8.REF_CALLS == 0
+    assert q8.LAUNCHES["q8_matmul"] == 5 and q8.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("k,n", [(2048, 8192), (512, 1536), (8192, 2048)])
+@pytest.mark.parametrize("m", [65, 128, 200, 1000])
+def test_rows_past_64_take_slabs(dev, m, k, n):
+    """M > 64 (what the TPU kernel pads to a multiple of 16): one launch a
+    64-row slab, each slab the bits of its rows' own product, within the
+    tolerance of the plain version; the bfloat16 output is the float32's
+    rounding."""
+    x, q, s = _inputs(m, k, n, m + k, dev)
+    q8.reset_counts()
+    got = _assert_close(x, q, s)
+    assert q8.LAUNCHES["q8_matmul"] == 2 * len(q8.slabs(m)) \
+        == 2 * -(-m // 64)
+    for r0, rows in q8.slabs(m):
+        assert torch.equal(got[r0:r0 + rows],
+                           q8.q8_matmul(x[r0:r0 + rows].contiguous(), q, s))
+    bf16 = q8.q8_matmul(x, q, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(bf16, got.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("lead,k,n,kernel", [

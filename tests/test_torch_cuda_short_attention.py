@@ -6,7 +6,10 @@ they skip on a host without one.  Run them there with
 Tolerance (``ops/short_attention.py``): ``TOL_ABS + TOL_REL * |plain|``
 (0.01 + 0.02 |plain|): both round the probabilities and the output to
 bfloat16, in another summation order, so a probability that rounds the
-other way moves the output by about one ulp.
+other way moves the output by about one ulp.  The general route
+(``attn_general_fwd`` in two passes) is held to ``sa.tolerance`` of the
+input's type: that for bfloat16, float16's scaled by 2^-10 / 2^-7, and
+1e-5 for float32.
 """
 import numpy as np
 import pytest
@@ -35,10 +38,11 @@ def _assert_close(q, k, v):
     got = sa.fused_short_attention(q, k, v)
     torch.cuda.synchronize()
     ref = sa.short_attention_ref(q, k, v)
-    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.dtype == ref.dtype == v.dtype
     assert got.shape == ref.shape
     err = (got.float() - ref.float()).abs()
-    excess = err - (sa.TOL_ABS + sa.TOL_REL * ref.float().abs())
+    tol_abs, tol_rel = sa.tolerance(v.dtype)
+    excess = err - (tol_abs + tol_rel * ref.float().abs())
     assert float(excess.max()) <= 0, float(err.max())
     assert bool(torch.isfinite(got).all())
 
@@ -74,27 +78,86 @@ def test_launch_counts_and_no_plain_calls(dev):
     q, k, v = _qkv(1, 2, 50, 64, 0, dev)
     sa.reset_counts()
     sa.fused_short_attention(q, k, v)
-    assert sa.LAUNCHES == {"short_attention": 1} and sa.REF_CALLS == 0
+    one = {"short_attention": 1, "short_attention_general": 0}
+    assert sa.LAUNCHES == one and sa.REF_CALLS == 0
     sa.fused_short_attention(q.cpu(), k.cpu(), v.cpu())
-    assert sa.LAUNCHES == {"short_attention": 1} and sa.REF_CALLS == 1
+    assert sa.LAUNCHES == one and sa.REF_CALLS == 1
 
 
 @pytest.mark.parametrize("shape,dtype", [
-    ((1, 2, 50, 32), torch.bfloat16),       # head dim 32
-    ((1, 2, 50, 64), torch.float32),        # float32
-    ((1, 2, 50, 64), torch.float16),        # fp16
-    ((1, 2, 257, 64), torch.bfloat16),      # more than 256 tokens
-    ((1, 3, 50, 64), torch.bfloat16)])      # odd heads
+    ((1, 3, 50, 64), torch.bfloat16),       # odd heads
+    ((1, 2, 50, 64), torch.int32)])         # not a float type
 def test_kernel_rejects_what_it_cannot_take(dev, shape, dtype):
-    q, k, v = _qkv(*shape, 0, dev, dtype)
+    """What ``_fused_kernel`` does not take either: an odd head count and
+    integers.  (hd 32, float32, float16 and N 257 were refused here once;
+    ``test_general_route_matches_plain`` computes them.)"""
+    q, k, v = _qkv(*shape, 0, dev, torch.float32)
+    q, k, v = (z.to(dtype) for z in (q, k, v))
     with pytest.raises(ValueError):
         sa.fused_short_attention(q, k, v)
 
 
 def test_kernel_rejects_rows_off_16_bytes(dev):
-    """The 16-byte copies need every row on 16 bytes: a view one element
-    into its storage is refused."""
-    x = torch.zeros(1 * 2 * 50 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    """The mma kernel's 16-byte copies need every row on 16 bytes: a view
+    one element into its storage takes the general kernel, which reads
+    at any strides (once refused)."""
+    x = torch.randn(1 * 2 * 50 * 64 + 1, device=dev, dtype=torch.bfloat16)
     q = x[1:].view(1, 2, 50, 64)
-    with pytest.raises(ValueError):
-        sa.fused_short_attention(q, q, q)
+    sa.reset_counts()
+    _assert_close(q, q, q)
+    assert sa.LAUNCHES == {"short_attention": 0,
+                           "short_attention_general": 1}
+
+
+# hd 32 float32 (the tiny towers), hd 80 (width 640 / 8 heads), N past the
+# mma kernel's 256 (ViT-B/32 at a 512 input: 257; 1025), float16, hd 8 and
+# 1, a single token
+@pytest.mark.parametrize("b,h,n,hd,dtype", [
+    (3, 2, 5, 32, torch.float32), (2, 4, 50, 32, torch.float32),
+    (2, 8, 50, 80, torch.bfloat16), (1, 2, 50, 80, torch.float32),
+    (2, 12, 257, 64, torch.bfloat16), (1, 12, 1025, 64, torch.bfloat16),
+    (1, 2, 257, 64, torch.float32), (2, 12, 50, 64, torch.float16),
+    (2, 2, 70, 8, torch.bfloat16), (1, 2, 9, 1, torch.float32),
+    (1, 2, 1, 32, torch.float32), (1, 2, 50, 256, torch.bfloat16)],
+    ids=str)
+def test_general_route_matches_plain(dev, b, h, n, hd, dtype):
+    assert sa.short_route(dtype, hd, n) == "general"
+    sa.reset_counts()
+    _assert_close(*_qkv(b, h, n, hd, b + n + hd, dev, dtype))
+    assert sa.LAUNCHES == {"short_attention": 0,
+                           "short_attention_general": 1}
+    assert sa.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("n,hd,dtype", [(50, 32, torch.float32),
+                                        (257, 64, torch.bfloat16)], ids=str)
+def test_general_route_on_strided_views(dev, n, hd, dtype):
+    """The ViT's q, k, v at the general route's inputs: slices of one
+    [b, n, 3d] product, transposed."""
+    b, h = 3, 4
+    qkv = torch.randn(b, n, 3 * h * hd, device=dev, dtype=dtype)
+    q, k, v = (z.reshape(b, n, h, hd).transpose(1, 2)
+               for z in qkv.split(h * hd, dim=-1))
+    _assert_close(q, k, v)
+
+
+def test_tiny_tower_fused_on_the_card(dev):
+    """``ViTConfig.tiny()`` (float32, 2 heads of 32) with
+    ``attn_impl='fused'`` on the card: the general kernel, within 1e-5 of
+    the einsum tower."""
+    import dataclasses
+
+    from vidgraph_tpu_torch.models import vit as tvit
+
+    cfg = tvit.ViTConfig.tiny()
+    einsum = tvit.init_vision_tower(cfg, 0, device=dev).eval()
+    fused = tvit.init_vision_tower(
+        dataclasses.replace(cfg, attn_impl="fused"), 0, device=dev).eval()
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 64, 64, 3)).astype(np.float32)).to(dev)
+    sa.reset_counts()
+    with torch.no_grad():
+        got, want = fused(x), einsum(x)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES["short_attention_general"] == cfg.layers
+    assert float((got - want).abs().max()) <= 1e-5

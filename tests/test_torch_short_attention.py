@@ -99,4 +99,5 @@ def test_counts():
     tsa.reset_counts()
     tsa.fused_short_attention(q, k, v)
     tsa.fused_short_attention(q, k, v)
-    assert tsa.REF_CALLS == 2 and tsa.LAUNCHES == {"short_attention": 0}
+    assert tsa.REF_CALLS == 2 and tsa.LAUNCHES == {
+        "short_attention": 0, "short_attention_general": 0}

@@ -12,7 +12,11 @@
 //   visible(r,c) = c <= max(r, nv - 1)                 (causal + prefix)
 //   out[r] = sum_c softmax_c(s[r,c] | visible) v[c]    (float32, then bf16)
 //
-// for any T: the last tiles are masked in the kernel, no padding.
+// for any T: the last tiles are masked in the kernel, no padding; and any
+// B x H: (batch, head) is folded over the grid's y and z dimensions, so
+// 65,535 heads is no limit.  Other float types and head dims (float32,
+// float16, hd 32, 80, 256, ...) take attention_general.cu's kernels
+// (ops/flash_attention.py::flash_route).
 //
 // What bounds it on the H100: the tensor cores.  Nothing of the [B, H, T, T]
 // score matrix reaches device memory (the plain version writes and reads
@@ -172,14 +176,16 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
 }
 
 // At hd 64 an SM holds four blocks (at most 128 registers a thread), so
-// that one block's products overlap another's softmax.
-template <int kHeadDim, bool kWriteLse>
+// that one block's products overlap another's softmax.  kFold: (batch,
+// head) is folded over the grid's y and z, for B * H past y's 65,535; the
+// instantiation without it is the kernel that every smaller B * H takes.
+template <int kHeadDim, bool kWriteLse, bool kFold>
 __global__ void __launch_bounds__(128, kHeadDim == 64 ? 4 : 1)
 flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-               int T, int H, int nv, float scale_log2) {
+               int T, int H, int nv, float scale_log2, int BH) {
   constexpr int kThreads = 128;                   // one warpgroup
   constexpr int kQTile = 64;                      // query rows a block
   constexpr int kDimSteps = kHeadDim / 16;        // k-steps of q . k
@@ -192,7 +198,14 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
       ~1023u;
 
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  // unsigned, as blockIdx.y: the non-fold instantiation is the kernel
+  // these shapes took before the fold, instruction for instruction
+  unsigned bh = blockIdx.y;
+  if (kFold) {
+    bh += blockIdx.z * gridDim.y;
+    if (bh >= static_cast<unsigned>(BH)) return;
+  }
+  const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;         // mma group, thread in group
   const size_t tok = static_cast<size_t>(H) * kHeadDim;   // token stride
@@ -361,7 +374,7 @@ flash_attn_fwd(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 2; ++i) {
       const int r = row0 + i * 8;
       if (r < T)
-        lse[static_cast<size_t>(blockIdx.y) * T + r] =
+        lse[static_cast<size_t>(bh) * T + r] =
             (m[i] * scale_log2 + log2f(l[i])) * 0.6931471805599453f;
     }
   }
@@ -404,14 +417,16 @@ int launch(const __nv_bfloat16* q, const CUtensorMap& k_map,
            int T, int H, int nv, cudaStream_t st) {
   constexpr int kQTile = 64;
   const size_t smem = kStages * (2 * kKTile * kHeadDim * 2 + 16) + 1024;
-  auto* kern = flash_attn_fwd<kHeadDim, kWriteLse>;
+  const int bh = B * H, y = bh < 65535 ? bh : 65535;
+  auto* kern = bh > y ? flash_attn_fwd<kHeadDim, kWriteLse, true>
+                      : flash_attn_fwd<kHeadDim, kWriteLse, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kQTile - 1) / kQTile, B * H);
+  const dim3 grid((T + kQTile - 1) / kQTile, y, (bh + y - 1) / y);
   const float scale_log2 = 1.4426950408889634f / sqrtf(float(kHeadDim));
   kern<<<grid, 128, smem, st>>>(q, k_map, v_map, out, lse, T, H, nv,
-                                      scale_log2);
+                                scale_log2, bh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,17 +434,13 @@ int launch(const __nv_bfloat16* q, const CUtensorMap& k_map,
 
 extern "C" {
 
-// 1 where the kernel takes the head dim, else 0.
-int flash_takes_head_dim(int hd) { return hd == 64 || hd == 128; }
-
 // q, k, v, out: [B, T, H, hd] bf16, contiguous, 16-byte aligned; hd 64 or
 // 128.  lse: float32 [B, H, T], or null to write none.
 // cudaErrorNotSupported where libcuda offers no tensor-map encoder.
 int flash_attn_fwd_launch(const void* q, const void* k, const void* v,
                           void* out, void* lse, int B, int T, int H, int hd,
                           int nv, void* stream) {
-  if (!flash_takes_head_dim(hd))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap k_map, v_map;
   if (!encode_map(&k_map, k, B, T, H, hd) ||
       !encode_map(&v_map, v, B, T, H, hd))

@@ -18,7 +18,9 @@
 //   dQ[r]    = scale * sum_c dS[r,c] * k[c]
 //   dK[c]    = scale * sum_r dS[r,c] * q[r]
 //
-// for any T (ragged last tiles are masked, rows past T are staged as zeros).
+// for any T (ragged last tiles are masked, rows past T are staged as zeros)
+// and any B x H (folded over the grid's y and z, as in the forward).  Other
+// float types and head dims take attention_general.cu's backward kernels.
 //
 // What bounds it on the H100: operations.  Per visible (query, key) pair
 // the backward needs five products (S, dP, dV, dK, dQ) against the
@@ -203,7 +205,10 @@ constexpr int fused_smem_bytes() {
          4 * kTile * 4;
 }
 
-template <int kHeadDim>
+// kFold: (batch, head) folded over the grid's y and z, for B * H past y's
+// 65,535; the instantiation without it is the kernel every smaller B * H
+// takes.
+template <int kHeadDim, bool kFold>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_fused(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -213,7 +218,7 @@ flash_bwd_fused(const __nv_bfloat16* __restrict__ q,
                 const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                 float* __restrict__ dq_accum, int T, int H, int nv,
-                float scale, float scale_log2) {
+                float scale, float scale_log2, int BH) {
   constexpr int kStride = kHeadDim + 8;           // a staged row, padded
   constexpr int kTileElems = kTile * kStride;
   constexpr int kDimSteps = kHeadDim / 16;        // k-steps over the dims
@@ -230,13 +235,20 @@ flash_bwd_fused(const __nv_bfloat16* __restrict__ q,
 
   const int kt = blockIdx.x;                      // tile 0 is the heaviest
   const int key0 = kt * kTile;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  // unsigned, as blockIdx.y: the non-fold instantiation is the kernel
+  // these shapes took before the fold, instruction for instruction
+  unsigned bh = blockIdx.y;
+  if (kFold) {
+    bh += blockIdx.z * gridDim.y;
+    if (bh >= static_cast<unsigned>(BH)) return;
+  }
+  const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;         // mma group, thread in group
   const size_t tok = static_cast<size_t>(H) * kHeadDim;   // token stride
   const size_t base = static_cast<size_t>(b) * T * tok +
                       static_cast<size_t>(h) * kHeadDim;
-  const size_t rows = static_cast<size_t>(blockIdx.y) * T;  // into L, delta
+  const size_t rows = static_cast<size_t>(bh) * T;  // into L, delta
   const int kw0 = key0 + warp * 16;               // this warp's first key
   const int krow = kw0 + g;                       // this thread's keys: krow
                                                   // and krow + 8
@@ -472,15 +484,17 @@ cudaError_t launch_fused(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          float* dq_accum, int B, int T, int H, int nv,
                          cudaStream_t st) {
   constexpr int smem = fused_smem_bytes<kHeadDim>();
+  const int bh = B * H, y = bh < 65535 ? bh : 65535;
+  auto* kern = bh > y ? flash_bwd_fused<kHeadDim, true>
+                      : flash_bwd_fused<kHeadDim, false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused<kHeadDim>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const float scale = 1.f / sqrtf(float(kHeadDim));
-  const dim3 grid((T + kTile - 1) / kTile, B * H);
-  flash_bwd_fused<kHeadDim><<<grid, kThreads, smem, st>>>(
+  const dim3 grid((T + kTile - 1) / kTile, y, (bh + y - 1) / y);
+  kern<<<grid, kThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, dq_accum, T, H, nv, scale,
-      scale * kLog2e);
+      scale * kLog2e, bh);
   return cudaGetLastError();
 }
 

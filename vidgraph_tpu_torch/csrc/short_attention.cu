@@ -332,10 +332,6 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 extern "C" {
 
-int short_attention_head_dim() { return kHeadDim; }
-
-int short_attention_max_tokens() { return kMaxKeyTiles * kKeyTile; }
-
 // q, k, v: [B, H, N, 64] bf16 with element strides (sb, sh, sn, 1), 16-byte
 // aligned rows (pointers and strides multiples of 8 elements); out:
 // [B, H, N, 64] bf16 contiguous; 1 <= N <= 256, 1 <= B * H < 2^31.

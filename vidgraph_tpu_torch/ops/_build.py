@@ -70,8 +70,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_fused_launch.restype = i
     lib.flash_bwd_dq_convert_launch.argtypes = [p, p, ctypes.c_longlong, i, p]
     lib.flash_bwd_dq_convert_launch.restype = i
-    lib.flash_takes_head_dim.argtypes = [i]
-    lib.flash_takes_head_dim.restype = i
+    lib.attn_general_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            i, i, f, p]
+    lib.attn_general_fwd_launch.restype = i
+    lib.attn_general_bwd_delta_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                  p]
+    lib.attn_general_bwd_delta_launch.restype = i
+    lib.attn_general_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                            i, i, i, i, f, p]
+    lib.attn_general_bwd_launch.restype = i
+    lib.attn_general_dq_convert_launch.argtypes = [p, p, ctypes.c_longlong,
+                                                   i, f, p]
+    lib.attn_general_dq_convert_launch.restype = i
     lib.preprocess_frames_launch.argtypes = [p, p, i, i, i, i, p, p, p, i,
                                              i, i, i, i, i, i, i, i, i, f,
                                              f, f, f, f, f, p]
@@ -79,8 +89,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i64, i64,
                                            i64, p]
     lib.short_attention_launch.restype = i
-    lib.short_attention_max_tokens.restype = i
-    lib.short_attention_head_dim.restype = i
     lib.q8_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.q8_matmul_launch.restype = i
 

@@ -29,10 +29,23 @@ and V brought by TMA into a three-stage swizzled ring (the tensor maps
 are encoded by libcuda's ``cuTensorMapEncodeTiled``, looked up at run
 time).
 
-Numerics: q, k, v and the output are bfloat16 [B, T, h, hd], hd 64 (the
-base, chat and mid-scale widths) or 128 (``CaptionerConfig.large()``);
-scores, the running max and sum and the output are accumulated in float32,
-with scale ``1/sqrt(hd)``.  The unnormalised probabilities are rounded to
+Routes (``flash_route``, on dtype and hd, before the launch): bfloat16 at
+hd 64 (the base, chat and mid-scale widths) or 128
+(``CaptionerConfig.large()``) takes the kernels above ("wgmma"); every
+other input the TPU kernel takes (float32, float16, any hd: the tiny and
+tiny64 captioners' hd 32, widths such as 640 / 8 heads = 80) takes the
+general kernels of ``csrc/attention_general.cu`` ("general":
+``attn_general_fwd``, ``attn_general_bwd_delta``, ``attn_general_bwd``,
+``attn_general_dq_convert``), which compute the same function with
+float32 products and sums on the CUDA cores: float32 inputs are never
+rounded (no TF32), 16-bit inputs get the wgmma kernels' roundings.  Both
+routes take any T and any B x h (the wgmma kernels fold B x h over two
+grid dimensions).  A CUDA tensor never takes the plain version: a failed
+build or launch raises.
+
+Numerics of the wgmma route: q, k, v and the output are bfloat16
+[B, T, h, hd]; scores, the running max and sum and the output are
+accumulated in float32, with scale ``1/sqrt(hd)``.  The unnormalised probabilities are rounded to
 bfloat16 before P.V (the tensor-core operand), where the plain version
 rounds the normalised ones, as the JAX einsum path does; the two agree to
 bfloat16 rounding (``TOL_ABS + TOL_REL * |ref|``).  The backward rounds P
@@ -53,6 +66,7 @@ kernel launches, ``REF_CALLS`` the plain forward's calls.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
@@ -62,9 +76,27 @@ from torch.autograd.function import once_differentiable
 from . import _build
 
 TOL_ABS, TOL_REL = 1e-2, 2e-2   # kernel vs plain version, bf16 outputs
+# float16 outputs: the bfloat16 tolerance scaled by the ratio of the two
+# types' units in the last place (2^-10 / 2^-7)
+TOL_F16_ABS, TOL_F16_REL = 1.25e-3, 2.5e-3
+# float32: the forward within 1e-5 (the same float32 arithmetic in another
+# summation order); the gradients within 1e-5 + 1e-4 |plain|, sums over
+# T keys or queries
+TOL_F32 = 1e-5
+BWD_TOL_F32_ABS, BWD_TOL_F32_REL = 1e-5, 1e-4
+
+FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the type codes of attention_general.cu's entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the head dims flash_attention.cu is instantiated for (bfloat16)
+WGMMA_HEAD_DIMS = (64, 128)
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_delta": 0,
-                            "flash_bwd_fused": 0, "flash_bwd_dq_convert": 0}
+                            "flash_bwd_fused": 0, "flash_bwd_dq_convert": 0,
+                            "flash_fwd_general": 0,
+                            "flash_bwd_general_delta": 0,
+                            "flash_bwd_general": 0,
+                            "flash_bwd_general_dq_convert": 0}
 REF_CALLS = 0
 
 
@@ -73,6 +105,30 @@ def reset_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     REF_CALLS = 0
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernels a [B, T, h, hd] input of ``dtype`` takes on the card:
+    "wgmma" (bfloat16 at hd 64 or 128, ``csrc/flash_attention.cu`` and
+    ``flash_attention_bwd.cu``) or "general" (every other float type and
+    head dim, ``csrc/attention_general.cu``).  Raises only for what the
+    TPU kernel does not take either: a type that is not floating point, or
+    hd < 1."""
+    if dtype not in FLOAT_TYPES:
+        raise ValueError(f"{dtype}: the attention kernels take "
+                         "float32, bfloat16 or float16")
+    if hd < 1:
+        raise ValueError(f"head dim {hd}")
+    return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            else "general")
+
+
+def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
+    """(abs, rel) of the forward's ``|kernel - plain| <= abs + rel |plain|``
+    (the plain version rounded to ``dtype``) at inputs of ``dtype``."""
+    return {torch.bfloat16: (TOL_ABS, TOL_REL),
+            torch.float16: (TOL_F16_ABS, TOL_F16_REL),
+            torch.float32: (TOL_F32, 0.0)}[dtype]
 
 
 def prefix_causal_mask(t: int, nv: int, device=None) -> torch.Tensor:
@@ -140,10 +196,11 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     nv: int, flash: bool = True) -> torch.Tensor:
-    """Attention over [B, T, h, hd]: the CUDA kernels for a CUDA tensor
-    (bfloat16 output; differentiable through ``FlashAttentionFn``), the
-    plain version (float32 output, differentiable through autograd) for a
-    CPU tensor or with ``flash=False``."""
+    """Attention over [B, T, h, hd]: the CUDA kernels of ``flash_route``
+    for a CUDA tensor (output in the input's type; differentiable through
+    ``FlashAttentionFn``), the plain version (float32 output,
+    differentiable through autograd) for a CPU tensor or with
+    ``flash=False``."""
     global REF_CALLS
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -161,43 +218,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _cuda_flash(q, k, v, nv)[0]
 
 
-def _check_inputs(lib, **tensors: torch.Tensor) -> None:
+def _check_inputs(route: str, **tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: every tensor [B, T, h, hd]
-    bfloat16, contiguous, 16-byte aligned, on one CUDA device, hd 64 or
-    128, B*h within the grid's second dimension."""
+    of one float type, contiguous, on one CUDA device, T >= 1; on the
+    wgmma route also bfloat16 at hd 64 or 128 and 16-byte aligned (TMA
+    and 16-byte loads)."""
     first = next(iter(tensors.values()))
-    b, t, h, hd = first.shape
-    if not lib.flash_takes_head_dim(hd):
-        raise ValueError(f"head dim {hd}: the kernel takes 64 or 128")
+    if route == "wgmma" and flash_route(first.dtype,
+                                        first.shape[-1]) != "wgmma":
+        raise ValueError(f"{first.dtype} {tuple(first.shape)}: the wgmma "
+                         "kernels take bfloat16 with hd 64 or 128")
     for name, x in tensors.items():
         if x.shape != first.shape or x.device != first.device:
             raise ValueError(f"{name} {tuple(x.shape)} on {x.device} does "
                              f"not match {tuple(first.shape)} on "
                              f"{first.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} is {x.dtype}; the kernel takes "
-                             "bfloat16")
+        if x.dtype != first.dtype:
+            raise ValueError(f"{name} is {x.dtype}, not {first.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
+        if route == "wgmma" and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if b * h > 65535 or t == 0:
-        raise ValueError(f"B*h = {b * h} (at most 65535) and T = {t} "
-                         "(at least 1) bound the kernel's grid")
+    if first.shape[1] == 0:
+        raise ValueError("T = 0: the kernels take at least one token")
+
+
+def _bhtd(x: torch.Tensor, heads_first: bool) -> Tuple[int, ...]:
+    """x's element strides in (batch, head, token, dim) order."""
+    st = x.stride()
+    return st if heads_first else (st[0], st[2], st[1], st[3])
+
+
+def general_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: Optional[torch.Tensor], nv: int,
+                    two_pass: bool, heads_first: bool) -> None:
+    """One ``attn_general_fwd`` launch into ``out`` (and ``lse`` [B, h, T]
+    float32, or None): q, k, v, out of one float type, [B, T, h, hd]
+    (``heads_first`` False) or [B, h, T, hd] views at any strides;
+    ``two_pass`` normalises p before P.V (the short-attention kernel's
+    arithmetic).  The callers count the launch."""
+    if heads_first:
+        b, h, t, hd = q.shape
+    else:
+        b, t, h, hd = q.shape
+    strides = (ctypes.c_longlong * 16)(*(
+        s for x in (q, k, v, out) for s in _bhtd(x, heads_first)))
+    lib = _build.library()
+    _build.check(lib.attn_general_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        ctypes.addressof(strides), b, h, t, hd, nv, int(two_pass),
+        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream), "attn_general_fwd")
 
 
 def _cuda_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, nv: int,
                 with_lse: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One ``flash_fwd`` launch: (out [B, T, h, hd] bfloat16, and with
-    ``with_lse`` the residual L [B, h, T] float32, else None)."""
+    """One forward launch on ``flash_route``'s kernel: (out [B, T, h, hd]
+    in the input's type, and with ``with_lse`` the residual L [B, h, T]
+    float32, else None)."""
     b, t, h, hd = q.shape
+    route = flash_route(q.dtype, hd)
+    _check_inputs(route, q=q, k=k, v=v)
     lib = _build.library()
-    _check_inputs(lib, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
+        if route == "general":
+            general_forward(q, k, v, out, lse, nv, False, False)
+            LAUNCHES["flash_fwd_general"] += 1
+            return out, lse
         _build.check(lib.flash_attn_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
@@ -223,7 +315,7 @@ def _cuda_delta(out: torch.Tensor, dout: torch.Tensor
     [B, h, T], and the zeroed float32 dq accumulator [B, T, h, hd])."""
     b, t, h, hd = out.shape
     lib = _build.library()
-    _check_inputs(lib, out=out, dout=dout)
+    _check_inputs("wgmma", out=out, dout=dout)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
     dq_accum = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     with torch.cuda.device(out.device):
@@ -243,7 +335,7 @@ def _cuda_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the unscaled dq is added into ``dq_accum``."""
     b, t, h, hd = q.shape
     lib = _build.library()
-    _check_inputs(lib, q=q, k=k, v=v, dout=dout)
+    _check_inputs("wgmma", q=q, k=k, v=v, dout=dout)
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     _check_accum(dq_accum, q)
@@ -272,7 +364,7 @@ def _cuda_dq_convert(dq_accum: torch.Tensor) -> torch.Tensor:
     sqrt(hd)), [B, T, h, hd]."""
     lib = _build.library()
     hd = dq_accum.shape[-1]
-    if dq_accum.dim() != 4 or not lib.flash_takes_head_dim(hd):
+    if dq_accum.dim() != 4 or hd not in WGMMA_HEAD_DIMS:
         raise ValueError(f"dq_accum {tuple(dq_accum.shape)}: [B, T, h, hd] "
                          "with hd 64 or 128")
     _check_accum(dq_accum, dq_accum)
@@ -286,11 +378,76 @@ def _cuda_dq_convert(dq_accum: torch.Tensor) -> torch.Tensor:
     return dq
 
 
+def _cuda_general_delta(out: torch.Tensor, dout: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``attn_general_bwd_delta`` launch: (``rowsum(dout * out)`` as
+    float32 [B, h, T], and the zeroed float32 dq accumulator)."""
+    b, t, h, hd = out.shape
+    _check_inputs("general", out=out, dout=dout)
+    lib = _build.library()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    dq_accum = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    with torch.cuda.device(out.device):
+        _build.check(lib.attn_general_bwd_delta_launch(
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            dq_accum.data_ptr(), b, t, h, hd, DTYPE_CODES[out.dtype],
+            torch.cuda.current_stream().cuda_stream),
+            "attn_general_bwd_delta")
+        LAUNCHES["flash_bwd_general_delta"] += 1
+    return delta, dq_accum
+
+
+def _cuda_general_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, dq_accum: torch.Tensor, nv: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``attn_general_bwd`` launch: (dk, dv) in the input's type; the
+    unscaled dq is added into ``dq_accum``."""
+    b, t, h, hd = q.shape
+    _check_inputs("general", q=q, k=k, v=v, dout=dout)
+    _check_rows("lse", lse, q)
+    _check_rows("delta", delta, q)
+    _check_accum(dq_accum, q)
+    lib = _build.library()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _build.check(lib.attn_general_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dq_accum.data_ptr(), b, t, h, hd, nv, DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream),
+            "attn_general_bwd")
+        LAUNCHES["flash_bwd_general"] += 1
+    return dk, dv
+
+
+def _cuda_general_dq_convert(dq_accum: torch.Tensor,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """One ``attn_general_dq_convert`` launch: dq = dq_accum / sqrt(hd) in
+    ``dtype``, [B, T, h, hd]."""
+    _check_accum(dq_accum, dq_accum)
+    lib = _build.library()
+    dq = torch.empty(dq_accum.shape, dtype=dtype, device=dq_accum.device)
+    with torch.cuda.device(dq_accum.device):
+        _build.check(lib.attn_general_dq_convert_launch(
+            dq_accum.data_ptr(), dq.data_ptr(), dq_accum.numel(),
+            DTYPE_CODES[dtype], 1.0 / math.sqrt(dq_accum.shape[-1]),
+            torch.cuda.current_stream().cuda_stream),
+            "attn_general_dq_convert")
+        LAUNCHES["flash_bwd_general_dq_convert"] += 1
+    return dq
+
+
 def _cuda_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                     nv: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The three backward launches: (dq, dk, dv), bfloat16 [B, T, h, hd]."""
+    """The backward on ``flash_route``'s kernels, three launches:
+    (dq, dk, dv) [B, T, h, hd] in the input's type."""
+    if flash_route(q.dtype, q.shape[-1]) == "general":
+        delta, dq_accum = _cuda_general_delta(out, dout)
+        dk, dv = _cuda_general_bwd(q, k, v, dout, lse, delta, dq_accum, nv)
+        return _cuda_general_dq_convert(dq_accum, q.dtype), dk, dv
     delta, dq_accum = _cuda_delta(out, dout)
     dk, dv = _cuda_bwd_fused(q, k, v, dout, lse, delta, dq_accum, nv)
     return _cuda_dq_convert(dq_accum), dk, dv
@@ -312,6 +469,6 @@ class FlashAttentionFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.to(torch.bfloat16).contiguous()
+        dout = dout.to(q.dtype).contiguous()
         dq, dk, dv = _cuda_flash_bwd(q, k, v, out, lse, dout, ctx.nv)
         return dq, dk, dv, None

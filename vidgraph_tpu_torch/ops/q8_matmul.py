@@ -11,7 +11,11 @@ computes the same function:
 x rounded to bfloat16, the int8 weights converted on the chip (exact), the
 products summed in float32, the per-column scale applied to the float32
 sum, float32 out (or that rounded to bfloat16).  It is reached from ``models/quant8.py::wdot`` with
-``qmode='a16p'``, for M <= 64 and K, N multiples of 128.
+``qmode='a16p'``, for M <= 64 and K, N multiples of 128.  A direct call
+takes any M, as the TPU kernel does (it pads M to a multiple of 16):
+``slabs`` cuts M > 64 into 64-row slabs, one launch of the kernel's plan
+each, written into the rows of one output (rows are independent, so this
+is exact); M <= 64 is one launch, as before.
 
 What bounds it on the H100: bytes, the K x N int8 weights.  PyTorch has no
 convert fused into a product: the plain ``a16`` expression
@@ -69,6 +73,14 @@ def q8_matmul_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     x [M, K] float, q [K, N] int8, s [N] float32 -> [M, N]."""
     y = (x.to(torch.bfloat16).float() @ q.float()) * s.float()
     return y.to(out_dtype)
+
+
+def slabs(m: int) -> Tuple[Tuple[int, int], ...]:
+    """The launches of an [m, K] product: (first row, rows) of each slab
+    of at most ``MAX_M`` rows, in order; one slab for m <= ``MAX_M``."""
+    if m < 1:
+        raise ValueError(f"M = {m}: at least one row")
+    return tuple((r, min(MAX_M, m - r)) for r in range(0, m, MAX_M))
 
 
 class Plan(NamedTuple):
@@ -138,7 +150,8 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x [M, K] float, q [K, N] int8, s [N] float32 -> [M, N] in
     ``out_dtype`` (float32 or bfloat16): the CUDA kernel for CUDA tensors
-    (M <= 64), the plain version for CPU tensors."""
+    (one launch a 64-row slab of ``slabs(M)``), the plain version for CPU
+    tensors."""
     global REF_CALLS
     _check_shapes(x, q, s)
     if out_dtype not in _OUT_DTYPES:
@@ -163,12 +176,15 @@ _plan = functools.lru_cache(maxsize=1024)(plan)
 
 def _cuda_q8_matmul(x, q, s, out_dtype=torch.float32,
                     cluster: Optional[int] = None):
-    """Launch the kernel; ``cluster`` overrides ``plan``'s choice (the card
-    tests hold every split of K to the plain version through it)."""
+    """Launch the kernel once a slab of ``slabs(M)``; ``cluster``
+    overrides ``plan``'s choice (the card tests hold every split of K to
+    the plain version through it)."""
     m, k = x.shape
     n = q.shape[1]
     dev = x.device
-    p = _plan(m, k, n, _sm_count(dev.index), cluster)
+    parts = slabs(m)
+    plans = [_plan(rows, k, n, _sm_count(dev.index), cluster)
+             for _, rows in parts]
     lib = _build.library()
     if x.dtype != torch.bfloat16:
         if not x.is_floating_point():
@@ -185,14 +201,19 @@ def _cuda_q8_matmul(x, q, s, out_dtype=torch.float32,
     if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
         raise ValueError("x, q and s must be 16-byte aligned")
     out = torch.empty((m, n), device=dev, dtype=out_dtype)
-    args = (*ptrs, out.data_ptr(), m, k, n, p.cluster,
-            int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        err = lib.q8_matmul_launch(*args)
-    else:
-        with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16_out = int(out_dtype == torch.bfloat16)
+    for (r0, rows), p in zip(parts, plans):
+        # row r0 of x and of out: K * 2 and N * out bytes a row, multiples
+        # of 16 bytes, so the slabs stay 16-byte aligned
+        args = (ptrs[0] + r0 * k * 2, *ptrs[1:],
+                out.data_ptr() + r0 * n * out.element_size(), rows, k, n,
+                p.cluster, bf16_out, stream)
+        if dev.index == torch.cuda.current_device():
             err = lib.q8_matmul_launch(*args)
-    _build.check(err, "q8_matmul")
-    LAUNCHES["q8_matmul"] += 1
+        else:
+            with torch.cuda.device(dev):
+                err = lib.q8_matmul_launch(*args)
+        _build.check(err, "q8_matmul")
+        LAUNCHES["q8_matmul"] += 1
     return out

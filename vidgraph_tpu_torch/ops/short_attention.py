@@ -23,8 +23,19 @@ Also here: ``packed_attention`` (the JAX package's head-pair packing, in
 PyTorch ops; ``attn_impl='packed'``) and ``short_attention_ref``, the plain
 per-head version of the kernel.
 
+Routes (``short_route``, on dtype, hd, N and alignment, before the
+launch): bfloat16 at hd 64 with N <= 256 and rows on 16 bytes (the
+ViT-B/32 heads) takes the kernel above ("mma"); every other input that
+``_fused_kernel`` takes (float32 and float16, any hd: the tiny towers'
+32; any N: ViT-B/32 at a 512 input has 257 tokens) takes the two-pass
+mode of ``csrc/attention_general.cu``'s ``attn_general_fwd`` ("general",
+at any strides; see ``ops/flash_attention.py::general_forward``): pass 1
+the row max and sum, pass 2 p normalised and rounded to v's type before
+P.V, as ``_fused_kernel`` does, with float32 products and sums on the
+CUDA cores.
+
 Dispatch: ``fused_short_attention`` takes the plain version for a tensor
-on the CPU; a CUDA tensor launches the kernel or raises.  An odd head count raises, as in the JAX package.
+on the CPU; a CUDA tensor launches a kernel or raises.  An odd head count raises, as in the JAX package.
 ``LAUNCHES`` counts kernel launches, ``REF_CALLS`` the plain version's
 calls.
 """
@@ -36,21 +47,45 @@ from typing import Dict
 import torch
 
 from . import _build
+from .flash_attention import FLOAT_TYPES, general_forward, tolerance
 
 # kernel vs plain version (bf16 outputs): about one bf16 ulp, the same
 # roundings in another summation order; TOL_F32 holds float32 plain
-# versions to the JAX package's
+# versions to the JAX package's.  ``tolerance(dtype)`` (the attention
+# kernels' own) gives each output type's.
 TOL_F32 = 1e-5
 TOL_ABS, TOL_REL = 1e-2, 2e-2
 
-LAUNCHES: Dict[str, int] = {"short_attention": 0}
+# short_attention.cu's instantiation: bfloat16, hd 64, up to 4 key tiles
+MMA_HEAD_DIM, MMA_MAX_TOKENS = 64, 256
+
+LAUNCHES: Dict[str, int] = {"short_attention": 0,
+                            "short_attention_general": 0}
 REF_CALLS = 0
 
 
 def reset_counts() -> None:
     global REF_CALLS
-    LAUNCHES["short_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
     REF_CALLS = 0
+
+
+def short_route(dtype: torch.dtype, hd: int, n: int,
+                aligned: bool = True) -> str:
+    """The kernel that [B, h, N, hd] inputs of ``dtype`` take on the card:
+    "mma" (``csrc/short_attention.cu``: bfloat16, hd 64, N <= 256, rows on
+    16 bytes, ``aligned``) or "general" (``attn_general_fwd`` in two
+    passes: every other float type, hd and N).  Raises only for what
+    ``_fused_kernel`` does not take either: a type that is not floating
+    point, hd < 1 or N < 1."""
+    if dtype not in FLOAT_TYPES:
+        raise ValueError(f"{dtype}: the short-attention kernels take "
+                         "float32, bfloat16 or float16")
+    if hd < 1 or n < 1:
+        raise ValueError(f"hd = {hd}, N = {n}: both must be at least 1")
+    return ("mma" if dtype == torch.bfloat16 and hd == MMA_HEAD_DIM
+            and n <= MMA_MAX_TOKENS and aligned else "general")
 
 
 def _pair_mask(n: int, rows: int, device=None) -> torch.Tensor:
@@ -92,8 +127,8 @@ def short_attention_ref(q: torch.Tensor, k: torch.Tensor,
 
 def fused_short_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """Exact MHA over [B, h, N, hd] (h even): the CUDA kernel for a CUDA
-    tensor (bf16, hd 64: the ViT-B/32 heads), the plain version for a CPU
+    """Exact MHA over [B, h, N, hd] (h even): the CUDA kernel of
+    ``short_route`` for a CUDA tensor, the plain version for a CPU
     tensor.  The inputs may be strided views (the ViT
     passes slices of one qkv product); the output is contiguous [B, h, N,
     hd] in v's dtype."""
@@ -119,31 +154,30 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor,
     return _cuda_short_attention(q, k, v)
 
 
+def _rows_aligned(*xs: torch.Tensor) -> bool:
+    """Every row of q, k and v on 16 bytes, and one set of strides with hd
+    contiguous: what the mma kernel's 16-byte copies need."""
+    strides = xs[0].stride()
+    return (all(x.stride() == strides for x in xs) and strides[3] == 1
+            and not any(st % 8 for st in strides[:3])
+            and not any(x.data_ptr() % 16 for x in xs))
+
+
 def _cuda_short_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     b, h, n, hd = q.shape
-    lib = _build.library()
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} is {x.dtype}; the kernel takes "
-                             "bfloat16")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if hd != lib.short_attention_head_dim():
-        raise ValueError(f"head dim {hd}: the kernel takes "
-                         f"{lib.short_attention_head_dim()}")
-    strides = q.stride()
-    if k.stride() != strides or v.stride() != strides or strides[3] != 1:
-        raise ValueError("q, k and v must share strides, with hd "
-                         "contiguous")
-    if any(st % 8 for st in strides[:3]):
-        raise ValueError(f"strides {strides}: rows must start on 16 bytes")
-    if not 1 <= n <= lib.short_attention_max_tokens():
-        raise ValueError(f"N = {n}: the kernel takes 1 to "
-                         f"{lib.short_attention_max_tokens()} tokens")
-    if not 1 <= b * h <= 2 ** 31 - 1:
-        raise ValueError(f"B*h = {b * h} out of the kernel's grid")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v are {q.dtype}, {k.dtype}, {v.dtype}: "
+                         "one float type")
+    route = short_route(q.dtype, hd, n, _rows_aligned(q, k, v))
     out = torch.empty((b, h, n, hd), device=q.device, dtype=q.dtype)
+    if route == "general":
+        with torch.cuda.device(q.device):
+            general_forward(q, k, v, out, None, n, True, True)
+            LAUNCHES["short_attention_general"] += 1
+        return out
+    lib = _build.library()
+    strides = q.stride()
     with torch.cuda.device(q.device):
         _build.check(lib.short_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

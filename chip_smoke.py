@@ -5041,6 +5041,13 @@ def general_flash_row(fa, b, t, h, hd, dtype, rng) -> dict:
     mask = fa.prefix_causal_mask(t, nv, q.device)
     row.update({
         "kernel_ms": cuda_ms(lambda: fa._cuda_flash(q, k, v, nv)),
+        "kernel_lse_ms": cuda_ms(lambda: fa._cuda_flash(q, k, v, nv,
+                                                        with_lse=True)),
+        # device time alone (CUDA-graph replay): CUDA events around one
+        # call also time the wrapper's host launch
+        "kernel_device_ms": graph_ms(lambda: fa._cuda_flash(q, k, v, nv)),
+        "bwd_device_ms": graph_ms(lambda: fa._cuda_flash_bwd(
+            q, k, v, out, lse, do, nv)),
         "plain_ms": cuda_ms(lambda: fa.attention_ref(q, k, v, nv),
                             reps=5),
         **library_sdpa(q, k, v, mask),
@@ -5082,6 +5089,36 @@ def general_flash_row(fa, b, t, h, hd, dtype, rng) -> dict:
     del q, k, v, do, out, lse, grads
     torch.cuda.empty_cache()
     return row
+
+
+def general_short_row(sa, b, h, n, hd, dtype, rng) -> dict:
+    """Kernel 5's general route (two passes) at [b, h, n, hd] of
+    ``dtype``: held to the plain version (``sa.tolerance``), then the
+    device times (CUDA-graph replay) of the kernel, the plain version and
+    SDPA, with the bound."""
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, h, n, hd), dtype=np.float32)).to("cuda", dtype)
+        for _ in range(3))
+    assert sa.short_route(dtype, hd, n) == "general", (b, h, n, hd, dtype)
+    got = sa.fused_short_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = sa.short_attention_ref(q, k, v).float()
+    tol_abs, tol_rel = sa.tolerance(dtype)
+    err = (got.float() - ref).abs()
+    assert bool(torch.isfinite(got).all()) and float(
+        (err - tol_abs - tol_rel * ref.abs()).max()) <= 0, \
+        f"short attention {b}x{h}x{n}x{hd} {dtype}: {float(err.max())}"
+    elem = torch.finfo(dtype).bits // 8
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    return {"max_abs_err": float(err.max()),
+            "kernel_ms": graph_ms(lambda: sa.fused_short_attention(q, k, v)),
+            "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
+            "library_ms": graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)),
+            **bound(4 * b * h * n * hd * elem, 4.0 * b * h * n * n * hd,
+                    peak)}
 
 
 def wide_heads_row(fa, b, t, h, hd, dtype, rng) -> dict:
@@ -5161,31 +5198,8 @@ def phase_attention_domains(seed: int, card: str) -> dict:
     assert fa.REF_CALLS == 0
 
     sa.reset_counts()
-    short = {}
-    for name, b, h, n, hd, dtype in ATTN_DOMAIN_SHORT:
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (b, h, n, hd), dtype=np.float32)).to("cuda", dtype)
-            for _ in range(3))
-        assert sa.short_route(dtype, hd, n) == "general", name
-        got = sa.fused_short_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = sa.short_attention_ref(q, k, v).float()
-        tol_abs, tol_rel = sa.tolerance(dtype)
-        err = (got.float() - ref).abs()
-        assert bool(torch.isfinite(got).all()) and float(
-            (err - tol_abs - tol_rel * ref.abs()).max()) <= 0, \
-            f"short attention {name}: {float(err.max())}"
-        elem = torch.finfo(dtype).bits // 8
-        peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        short[name] = {
-            "max_abs_err": float(err.max()),
-            "kernel_ms": graph_ms(lambda: sa.fused_short_attention(q, k, v)),
-            "plain_ms": graph_ms(lambda: sa.short_attention_ref(q, k, v)),
-            "library_ms": graph_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v)),
-            **bound(4 * b * h * n * hd * elem, 4.0 * b * h * n * n * hd,
-                    peak)}
-        del q, k, v, got, ref, err
+    short = {name: general_short_row(sa, b, h, n, hd, dtype, rng)
+             for name, b, h, n, hd, dtype in ATTN_DOMAIN_SHORT}
     res["short"] = short
     res["short_timing_calls"] = {**sa.LAUNCHES, "plain": sa.REF_CALLS}
     assert sa.REF_CALLS == 0
@@ -5283,6 +5297,10 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     # general flash kernels), the tiny64 tower fused (kernel 5's general
     # route); kernel 4's slabs are reached by direct calls only
     gen_src = "vidgraph_tpu_torch/csrc/attention_general.cu"
+    gen_bwd_src = "vidgraph_tpu_torch/csrc/attention_general_bwd.cu"
+    # float32 inputs take the CUDA-core kernels of this file
+    gen_f32 = {"source_float32": "vidgraph_tpu_torch/csrc/"
+                                 "attention_general_f32.cu"}
     cap64 = attn["tiny64_caption"]["launches"]
     smoke = attn["train_smoke_flash"]["launches"]
     grow = attn["flash"]["b2_T1033_h8x32_float32"]
@@ -5299,35 +5317,39 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                 for key in ("ms", "bound_ms", "bound_by")}
     general = [
         {"name": "attn_general_fwd (flash route)", "route": "cuda",
-         "source": gen_src, "replaces": "vidgraph_tpu/models/captioner.py:191",
+         "source": gen_src, **gen_f32,
+         "replaces": "vidgraph_tpu/models/captioner.py:191",
          "launches": cap64["flash_fwd_general"]
                      + smoke["flash_fwd_general"],
          "tiny64_caption_launches": cap64["flash_fwd_general"],
          "train_smoke_launches": smoke["flash_fwd_general"],
          "max_abs_err": gen_err, "ms": grow["kernel_ms"],
+         "device_ms": grow["kernel_device_ms"],
          "plain_ms": grow["plain_ms"], "library_ms": grow["library_ms"],
          "library_kernels": grow["library_kernels"],
          "bound_ms": grow["bound_ms"], "bound_by": grow["bound_by"],
          "timed": gen_timed},
-        {"name": "attn_general_bwd_delta", "route": "cuda", "source": gen_src,
+        {"name": "attn_general_bwd_delta", "route": "cuda",
+         "source": gen_bwd_src,
          "replaces": bwd_site, "replaces_in_jax": jax_flash + ":273",
          "launches": smoke["flash_bwd_general_delta"],
          "max_abs_err": gen_bwd_err,
          "plain_ms": grow["stages"]["delta"]["plain_ms"],
          "library_ms": None, **stage("delta"),
          "timed": gen_timed + "; device time from CUDA-graph replay"},
-        {"name": "attn_general_bwd", "route": "cuda", "source": gen_src,
-         "replaces": bwd_site,
+        {"name": "attn_general_bwd", "route": "cuda", "source": gen_bwd_src,
+         **gen_f32, "replaces": bwd_site,
          "replaces_in_jax": jax_flash + ":1121 and :1456",
          "launches": smoke["flash_bwd_general"],
          "max_abs_err": gen_bwd_err, "plain_ms": grow["plain_bwd_ms"],
          "library_ms": grow["library_bwd_ms"], **stage("bwd"),
          "backward_ms": grow["bwd_ms"],
+         "backward_device_ms": grow["bwd_device_ms"],
          "timed": gen_timed + "; plain_ms and library_ms are of the whole "
                   "backward (attention_bwd_ref; SDPA's forward + backward "
                   "less its forward)"},
         {"name": "attn_general_dq_convert", "route": "cuda",
-         "source": gen_src, "replaces": bwd_site,
+         "source": gen_bwd_src, "replaces": bwd_site,
          "replaces_in_jax": jax_flash + ":1456",
          "launches": smoke["flash_bwd_general_dq_convert"],
          "max_abs_err": gen_bwd_err,
@@ -5335,7 +5357,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "library_ms": None, **stage("dq_convert"),
          "timed": gen_timed + "; device time from CUDA-graph replay"},
         {"name": "attn_general_fwd (short-attention route, two passes)",
-         "route": "cuda", "source": gen_src,
+         "route": "cuda", "source": gen_src, **gen_f32,
          "replaces": "vidgraph_tpu/ops/short_attention.py:119",
          "launches": attn["tiny64_fused_tower"]["launches"][
              "short_attention_general"],

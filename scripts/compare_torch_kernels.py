@@ -4,7 +4,7 @@ CUDA card.
     python3 scripts/compare_torch_kernels.py --parent DIR [--train]
         [--int8-decode] [--rounds 2]
         [--jobs cosine,flash_fwd,short_attention,flash_bwd,q8,preprocess,
-                plans]
+                plans,general_attention]
 
 ``DIR`` holds another commit of this repository (for example
 ``git archive <commit> | tar -x -C DIR``, in a directory ``.gitignore``
@@ -49,7 +49,17 @@ named by ``--jobs`` (the first four by default):
   of 1080 x 1920, 1081 x 1921 and 1440 x 2560 -> 224, fast and exact,
   where both fit the card: each held to the plain version, device time
   from CUDA-graph replay, the plan ``plan`` picks and each plan's shape.
-  A tree with one plan reports none.
+  A tree with one plan reports none;
+* ``general_attention``: phase 26's cells of the general kernels
+  (``csrc/attention_general*.cu``): ``chip_smoke.py::general_flash_row``
+  at ``ATTN_DOMAIN_FLASH`` in float32 and bfloat16 and at its last shape
+  in float16 (the forward, its log-sum-exp and the three gradients held
+  to the plain versions, then CUDA-event medians of the forward, the
+  forward with lse and the backward's three launches, their device times
+  from CUDA-graph replay, the plain versions and SDPA forward and
+  backward), and ``general_short_row`` at ``ATTN_DOMAIN_SHORT`` (held to
+  the plain version, then device times of the kernel, the plain version
+  and SDPA).
 
 ``--train`` also runs each tree's ``scripts/profile_torch_train_step.py``
 (instruct and mid-scale steps with ``--flash``) in the same order, and
@@ -315,11 +325,36 @@ def plans_job(smoke) -> dict:
     return rows
 
 
+def general_attention_job(smoke) -> dict:
+    """Phase 26's general-route cells, each held to its plain version
+    first (``general_flash_row``, ``general_short_row``)."""
+    import numpy as np
+    import torch
+
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+    from vidgraph_tpu_torch.ops import short_attention as sa
+
+    rng = np.random.default_rng(26)
+    cells = [(*shape, dtype) for shape in smoke.ATTN_DOMAIN_FLASH
+             for dtype in (torch.float32, torch.bfloat16)]
+    cells.append((*smoke.ATTN_DOMAIN_FLASH[-1], torch.float16))
+    rows = {}
+    for b, t, h, hd, dtype in cells:
+        row = smoke.general_flash_row(fa, b, t, h, hd, dtype, rng)
+        row.pop("library_kernels", None)
+        rows[f"flash_b{b}_T{t}_h{h}x{hd}_{str(dtype)[6:]}"] = row
+    for name, b, h, n, hd, dtype in smoke.ATTN_DOMAIN_SHORT:
+        rows[f"short_{name}"] = smoke.general_short_row(sa, b, h, n, hd,
+                                                        dtype, rng)
+    return rows
+
+
 JOBS = {"cosine": cosine_job, "flash_fwd": flash_fwd_job,
         "short_attention": lambda smoke: smoke.phase_short_attention(
             0, smoke.nvidia_smi()),
         "flash_bwd": flash_bwd_job, "q8": q8_job,
-        "preprocess": preprocess_job, "plans": plans_job}
+        "preprocess": preprocess_job, "plans": plans_job,
+        "general_attention": general_attention_job}
 DEFAULT_JOBS = ("cosine", "flash_fwd", "short_attention", "flash_bwd")
 
 

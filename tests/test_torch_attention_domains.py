@@ -237,6 +237,46 @@ def test_rows_aligned_reads_the_views():
     assert not sa._rows_aligned(q, k, v.contiguous())
 
 
+def _view(kind, hd, dtype):
+    """[B, h, T, hd] views of the general kernels' layouts: the flash
+    route's contiguous [B, T, h, hd] (transposed), the ViT's slices of one
+    qkv product, and a contiguous view one element into its storage."""
+    b, t, h = 2, 9, 4
+    if kind == "contiguous":
+        return torch.zeros(b, t, h, hd, dtype=dtype).transpose(1, 2)
+    if kind == "qkv_slice":
+        qkv = torch.zeros(b, t, 3 * h * hd, dtype=dtype)
+        return qkv[..., h * hd:2 * h * hd].reshape(b, t, h, hd).transpose(1, 2)
+    x = torch.zeros(b * h * t * hd + 1, dtype=dtype)
+    return x[1:].view(b, h, t, hd)
+
+
+# (head dim, float type, layout) -> the forward's and the backward's
+# head-dim maxima and whether every row lies on 16 bytes
+@pytest.mark.parametrize("hd,dt,kind,fwd_max,bwd_max,aligned", [
+    (32, "f32", "contiguous", 64, 64, True),
+    (32, "bf16", "qkv_slice", 64, 64, True),
+    (8, "f16", "contiguous", 64, 64, True),
+    (15, "bf16", "contiguous", 64, 64, False),
+    (17, "f32", "contiguous", 64, 64, False),
+    (64, "bf16", "offset", 64, 64, False),
+    (80, "bf16", "contiguous", 128, 128, True),
+    (96, "f16", "qkv_slice", 128, 128, True),
+    (128, "f32", "offset", 128, 128, False),
+    (192, "bf16", "contiguous", 256, 128, True),
+    (256, "f32", "contiguous", 256, 128, True),
+    (384, "bf16", "contiguous", 256, 128, True),
+    (512, "f16", "qkv_slice", 256, 128, True)])
+def test_general_plan_picks_the_instantiation(hd, dt, kind, fwd_max,
+                                              bwd_max, aligned):
+    """``general_plan``: the smallest head-dim maximum that holds hd (the
+    largest past it, whose output blocks split hd), and 16-byte rows only
+    where every pointer, stride and hd allow 16-byte copies."""
+    x = _view(kind, hd, _DT[dt][1])
+    assert fa.general_plan(hd, x, x, x) == (fwd_max, aligned)
+    assert fa.general_plan(hd, x, x, x, backward=True) == (bwd_max, aligned)
+
+
 @pytest.mark.parametrize("m", [1, 8, 63, 64, 65, 128, 129, 200, 1000])
 def test_slabs_cover_every_row_once(m):
     """``slabs`` cuts M into 64-row slabs that cover every row once; M <=

@@ -321,8 +321,12 @@ def test_backward_rejects_what_it_cannot_take(dev):
 # ------------------------------------------- the general kernels' domain
 # head dims the wgmma kernels do not take: below 64 (the tiny and tiny64
 # captioners' 16 and 32), between (80: width 640 / 8 heads; 127), above
-# (256, 512: multiples of 128 as the TPU kernel takes them) and 1
-GENERAL_HEAD_DIMS = [1, 16, 32, 80, 127, 256, 512]
+# (256, 512: multiples of 128 as the TPU kernel takes them) and 1; and the
+# edges of the general kernels' instantiations and copies: 8 (one 16-byte
+# chunk of a 16-bit row), 15 and 17 (rows off 16 bytes), 48, 96 (the
+# three-slot ring's widest), 192 (the 256-dim instantiation, the
+# backward's 128-dim output blocks)
+GENERAL_HEAD_DIMS = [1, 8, 15, 16, 17, 32, 48, 80, 96, 127, 192, 256, 512]
 DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
@@ -358,7 +362,7 @@ def test_float16_at_the_wgmma_widths(dev, dtype, hd):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("hd", [16, 32, 80, 256])
+@pytest.mark.parametrize("hd", [8, 15, 16, 17, 32, 48, 80, 96, 192, 256])
 @pytest.mark.parametrize("t,nv", [(1, 8), (9, 8), (65, 0), (130, 70)])
 def test_general_backward_matches_plain(dev, dtype, hd, t, nv):
     """The general backward (delta, dk and dv a key tile at a time with dq
@@ -367,6 +371,64 @@ def test_general_backward_matches_plain(dev, dtype, hd, t, nv):
     _assert_backward_close(2, t, 2, hd, nv, dev, dtype=dtype)
     assert fa.LAUNCHES["flash_bwd_general"] == 1
     assert fa.LAUNCHES["flash_bwd_fused"] == 0 and fa.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hd", [32, 80])
+@pytest.mark.parametrize("t", [63, 64, 65, 127, 128, 129])
+def test_general_kernels_at_the_tile_edges(dev, dtype, hd, t):
+    """T on either side of one and two 64-row tiles: the forward, its
+    log-sum-exp and the three gradients against the plain versions."""
+    fa.reset_counts()
+    _assert_close(*_qkv(1, t, 2, 7 * t + hd, dev, hd=hd, dtype=dtype), 8)
+    _assert_backward_close(1, t, 2, hd, 8, dev, dtype=dtype)
+    assert fa.LAUNCHES["flash_fwd"] == fa.LAUNCHES["flash_bwd_fused"] == 0
+    assert fa.LAUNCHES["flash_bwd_general"] == 1 and fa.REF_CALLS == 0
+
+
+def _off_16_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x one element into its storage: rows off 16
+    bytes."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hd", [32, 80])
+def test_general_kernels_on_rows_off_16_bytes(dev, dtype, hd):
+    """q, k and v one element into their storage take the general
+    kernels' element loads, forward and backward, with the results of the
+    aligned copies' run within the tolerance of the plain versions."""
+    q, k, v = (_off_16_bytes(z) for z in _qkv(2, 130, 2, hd, dev, hd=hd,
+                                              dtype=dtype))
+    assert all(z.data_ptr() % 16 for z in (q, k, v))
+    assert not fa.general_plan(hd, q, k, v)[1]
+    fa.reset_counts()
+    _assert_close(q, k, v, 8)
+    do = _qkv(2, 130, 2, 5, dev, hd=hd, dtype=dtype)[2]
+    out, grads = _grads(q, k, v, 8, do)
+    lse = fa._cuda_flash(q, k, v, 8, with_lse=True)[1]
+    refs = fa.attention_bwd_ref(q, k, v, out, lse, do, 8)
+    torch.cuda.synchronize()
+    g_abs, g_rel = ((fa.BWD_TOL_F32_ABS, fa.BWD_TOL_F32_REL)
+                    if dtype == torch.float32 else fa.tolerance(dtype))
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        ref = ref.to(dtype).float()
+        excess = (got.float() - ref).abs() - (g_abs + g_rel * ref.abs())
+        assert float(excess.max()) <= 0, name
+    assert fa.LAUNCHES["flash_bwd_general"] == 1 and fa.REF_CALLS == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_general_backward_at_head_dim_384(dev, dtype):
+    """hd 384 (a multiple of 128, as the TPU kernel takes it past 128):
+    the backward's three 128-dim output blocks and the forward's two
+    256-dim blocks, against the plain gradients."""
+    fa.reset_counts()
+    _assert_backward_close(1, 130, 2, 384, 8, dev, dtype=dtype)
+    assert fa.LAUNCHES["flash_bwd_general"] == 1 and fa.REF_CALLS == 0
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),

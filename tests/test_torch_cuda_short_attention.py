@@ -111,14 +111,21 @@ def test_kernel_rejects_rows_off_16_bytes(dev):
 
 # hd 32 float32 (the tiny towers), hd 80 (width 640 / 8 heads), N past the
 # mma kernel's 256 (ViT-B/32 at a 512 input: 257; 1025), float16, hd 8 and
-# 1, a single token
+# 1, a single token; N on either side of one and two 64-key tiles; hd 15,
+# 17 (rows off 16 bytes), 48, 96, 192 and 384 (two 256-dim output blocks)
 @pytest.mark.parametrize("b,h,n,hd,dtype", [
     (3, 2, 5, 32, torch.float32), (2, 4, 50, 32, torch.float32),
     (2, 8, 50, 80, torch.bfloat16), (1, 2, 50, 80, torch.float32),
     (2, 12, 257, 64, torch.bfloat16), (1, 12, 1025, 64, torch.bfloat16),
     (1, 2, 257, 64, torch.float32), (2, 12, 50, 64, torch.float16),
     (2, 2, 70, 8, torch.bfloat16), (1, 2, 9, 1, torch.float32),
-    (1, 2, 1, 32, torch.float32), (1, 2, 50, 256, torch.bfloat16)],
+    (1, 2, 1, 32, torch.float32), (1, 2, 50, 256, torch.bfloat16),
+    (1, 2, 63, 80, torch.bfloat16), (1, 2, 64, 32, torch.float32),
+    (1, 2, 65, 64, torch.float16), (1, 2, 127, 80, torch.bfloat16),
+    (1, 2, 128, 32, torch.float32), (1, 2, 129, 64, torch.float16),
+    (2, 2, 50, 15, torch.bfloat16), (2, 2, 50, 17, torch.float16),
+    (1, 2, 70, 48, torch.float32), (1, 2, 50, 96, torch.bfloat16),
+    (1, 2, 50, 192, torch.float16), (1, 2, 33, 384, torch.bfloat16)],
     ids=str)
 def test_general_route_matches_plain(dev, b, h, n, hd, dtype):
     assert sa.short_route(dtype, hd, n) == "general"
@@ -139,6 +146,29 @@ def test_general_route_on_strided_views(dev, n, hd, dtype):
     q, k, v = (z.reshape(b, n, h, hd).transpose(1, 2)
                for z in qkv.split(h * hd, dim=-1))
     _assert_close(q, k, v)
+
+
+@pytest.mark.parametrize("n,hd,dtype", [(50, 32, torch.float32),
+                                        (257, 64, torch.bfloat16),
+                                        (65, 80, torch.float16),
+                                        (50, 15, torch.bfloat16)], ids=str)
+def test_general_route_on_rows_off_16_bytes(dev, n, hd, dtype):
+    """q, k and v whose rows are off 16 bytes: views one element into
+    their storage, and (hd 15) slices of one qkv product whose rows are
+    3 x 4 x 15 elements apart.  The general kernel's element loads."""
+    b, h = 2, 4
+    if hd % 8:
+        qkv = torch.randn(b, n, 3 * h * hd, device=dev, dtype=dtype)
+        q, k, v = (z.reshape(b, n, h, hd).transpose(1, 2)
+                   for z in qkv.split(h * hd, dim=-1))
+    else:
+        q, k, v = _qkv(b, h, n, hd, n + hd, dev, dtype)
+        q, k, v = (torch.empty(z.numel() + 1, device=dev, dtype=dtype)[1:]
+                   .view(z.shape).copy_(z) for z in (q, k, v))
+    sa.reset_counts()
+    _assert_close(q, k, v)
+    assert sa.LAUNCHES == {"short_attention": 0,
+                           "short_attention_general": 1}
 
 
 def test_tiny_tower_fused_on_the_card(dev):

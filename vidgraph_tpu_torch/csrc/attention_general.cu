@@ -1,6 +1,6 @@
 // Attention at the inputs the fast kernels do not take, for Hopper (sm_90a):
 // any head dim, float32, bfloat16 or float16, any token count, any number
-// of heads.
+// of heads, any strides.
 //
 // Replaces, at those inputs, the same TPU kernels as the fast ones:
 // vidgraph_tpu/models/captioner.py::_attn_flash (JAX's Pallas TPU
@@ -11,192 +11,119 @@
 // any N, any float type).  flash_attention.cu / flash_attention_bwd.cu keep
 // bfloat16 at hd 64 and 128, short_attention.cu bfloat16 at hd 64 and
 // N <= 256; ops/flash_attention.py::flash_route and
-// ops/short_attention.py::short_route choose, in Python, before the launch.
+// ops/short_attention.py::short_route choose, in Python, before the launch,
+// and ops/flash_attention.py::general_plan picks the instantiation here
+// (the head-dim maximum, and whether every row lies on 16 bytes).
 //
-// Forward, attn_general_fwd, for q, k, v [B, H, T, hd] given by element
-// strides (so [B, T, H, hd] and the ViT's strided views alike):
+// What they compute, for q, k, v [B, H, T, hd] at element strides:
 //
-//   s[r,c] = (q[r] . k[c]) * scale                       (float32 FMAs)
-//   visible(r,c) = c <= max(r, nv - 1)  (nv = T: every key)
-//   online (kTwoPass false, the flash forward):
-//     out[r] = sum_c e[r,c] v[c] / sum_c e[r,c],  e = exp(s - running max),
-//     e rounded to the input type as the P.V operand (a no-op in float32),
-//     as flash_attention.cu rounds it to bfloat16; L[r] = max + log(sum)
-//   two passes (kTwoPass true, _fused_kernel's arithmetic):
-//     pass 1 the row max m and sum l; pass 2 p = exp(s - m) / l rounded to
-//     the input type, out[r] = sum_c p[r,c] v[c]
+//   s[r,c] = (q[r] . k[c]) * scale,  visible(r,c) = c <= max(r, nv - 1)
+//   online (the flash forward): out[r] = sum_c e[r,c] v[c] / sum_c e[r,c],
+//     e = exp(s - running max) rounded to the input type as the P.V
+//     operand; L[r] = max + log(sum)
+//   two passes (_fused_kernel's arithmetic): pass 1 the row max m and sum
+//     l; pass 2 p = exp(s - m) / l rounded to the input type, out = P.V
+//   backward (attention_general_bwd.cu): delta = rowsum(dO * o),
+//     P = exp(s - L), dS = P (dO.v - delta), P and dS rounded to the input
+//     type as operands; dV = P^T dO, dK = scale dS^T q, dQ = scale dS k
+//     summed in a float32 accumulator by atomics
 //
-// with float32 sums and the output rounded once to the input type.  Float32
-// inputs get float32 products and sums throughout: no TF32, no 16-bit
-// rounding.
+// with float32 sums and each output rounded once.  Float32 inputs get
+// float32 products throughout (attention_general_f32.cu): no TF32, since
+// the tiny64 captioner's tokens must equal its plain prefill's.
 //
-// Backward (the flash gradients; [B, T, H, hd] contiguous):
-// attn_general_bwd_delta (delta = rowsum(dO * o), and the float32 dq
-// accumulator zeroed), attn_general_bwd (dK and dV of a 64-key tile, dQ
-// added into the accumulator by float32 atomics) and attn_general_dq_convert
-// (dq = scale * accumulator in the input type), the formulas of
-// flash_attention_bwd.cu with P and dS rounded to the input type as
-// operands.
+// What bounds them on the H100.  16-bit: the tensor cores (989 TFLOP/s) at
+// long T; launch latency and the softmax's exponentials at short T (a
+// ViT's N 50 at hd 80).  Float32: the CUDA cores' FMAs (67 TFLOP/s) at
+// long T; launch latency at short T (the tiny64 tower's N 5, the tiny64
+// captioner's prefill).  The bytes are q, k, v and the output once: far
+// below either at every shape the paths launch.
 //
-// What bounds it on the H100: at the shapes that reach it (the tiny64
-// captioner's prefill, 4 heads of 32 over a few tokens; the ViT at small
-// widths) launch latency; at long sequences the float32 products, which
-// run on the CUDA cores (67 TFLOP/s) since a float32 caption must not
-// round through TF32.  This is the simple kernel that is right, not the
-// fast one: one block of 128 threads (a 16 x 8 grid of threads, each
-// holding a 4 x 8 register tile) a (batch x head, 64 output dims, 64 query
-// rows); the score product streams q and k through shared memory 32 dims
-// at a time, so its shared memory (49,920 bytes forward, 83,968 backward)
-// does not grow with hd; heads wider than 64 take one block per 64 output
-// dims, each recomputing the scores.  The grid is one-dimensional, so
-// B x H is bounded by 2^31 blocks, not by 65,535.  The entry points have a
-// plain C interface and return cudaGetLastError().
-
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+// Design, 16-bit (this file and attention_general_bwd.cu):
+// * Both products on mma.sync m16n8k16 with float32 accumulators, operands
+//   by ldmatrix (.trans for V, dO and Q where they are the k x n operand).
+//   Not wgmma: this route takes every hd from 1 to 512 and beyond, strided
+//   views whose rows need not lie on the 16 bytes TMA needs, and tiles of
+//   5 or 9 tokens; a 64-row wgmma tile with TMA descriptors would leave
+//   most of that to masking, and mma.sync takes 16-row warp tiles with the
+//   same fragments at any hd.
+// * Forward: a block is (batch x head, 64 query rows), 4 warps of 16 rows.
+//   q is staged once into shared memory and never restaged; K and V tiles
+//   of 64 keys come by 16-byte cp.async into a ring of three slots (copies
+//   two tiles ahead) up to a width of 64, two above, the next copies
+//   issued right after the one barrier a tile, so they fly while the tile
+//   computes.  S stays in the accumulators; the online softmax runs on
+//   them in registers (exp2f, log2(e) folded into the scale; the mask
+//   test only on tiles that cut the diagonal or the sequence's end); P is
+//   packed in registers into the A fragments of P.V (the m16n8
+//   accumulator layout is the m16n8k16 A layout), so it never touches
+//   shared memory.  Two passes: pass 1 runs QK^T alone (no V copies) for
+//   m and l, pass 2 QK^T again, then the normalised, rounded p and P.V;
+//   both on tensor cores, so the second QK^T costs little.  With one key
+//   tile (N <= 64) K and V are staged once for both passes.
+// * Every head dim in one block up to 256: the QK^T reduction runs over hd
+//   in k-steps of 16 (zero-padded in shared memory), P.V over n-tiles of 8
+//   up to the instantiation's maximum (64, 128 or 256, chosen by hd), so
+//   hd 80 computes its scores once over 80 dims.  Only hd > 256 splits into
+//   256-dim output blocks that recompute the scores, restaging q and k 256
+//   dims at a time.
+// * Rows not on 16 bytes (a view one element into its storage, hd 15)
+//   take element loads into the same shared-memory tiles and the same
+//   tensor-core compute (`aligned` false): never the plain version.
+// * Grid: one-dimensional, heaviest query tiles first; B x H is bounded by
+//   2^31 blocks.  Shared memory 7 tiles of 64 x (hd + 8) up to hd 64 (65
+//   KB at 64), 5 above.
+// * As measured on an H100 (PERF.md section 6), a key tile costs ~2.4 us at
+//   hd 32-64 with 1-2 blocks an SM, far from the tensor cores' rate; a
+//   third ring slot and two warp groups splitting a block's keys did not
+//   shorten it, so what holds a tile is open.
+//
+// The entry points have a plain C interface and return cudaGetLastError().
 
 #include <algorithm>
-#include <cmath>
 
+#include "attention_general.cuh"
+
+namespace vg_attn {
 namespace {
 
-constexpr int kThreads = 128;             // 16 (ty) x 8 (tx)
-constexpr int kRows = 64;                 // query rows (or keys) a tile
-constexpr int kChunk = 32;                // dims a staged score chunk
-constexpr int kDims = 64;                 // output dims a block
-constexpr int kCS = kChunk + 1;           // padded rows of a score chunk
-constexpr int kPS = kRows + 1;            // padded rows of P, dS
+constexpr int kThreads = 128;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// x rounded to T's precision: the rounding of a tensor-core operand.
-template <typename T>
-__device__ __forceinline__ float round_as(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-// Element strides of a [B, H, T, hd] view.
-struct Layout {
-  long long b, h, t, d;
-};
-struct Strides {
-  Layout q, k, v, o;
-};
-
-// 64 rows x kChunk dims of x (rows from row0, dims from d0) into a
-// [64][kCS] float32 tile; zeros past `rows` and past hd.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* x,
-                                            const Layout& l, int row0,
-                                            int rows, int d0, int hd) {
-  for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i % kChunk;
-    const int row = row0 + r, d = d0 + c;
-    dst[r * kCS + c] =
-        row < rows && d < hd ? to_f<T>(x[row * l.t + d * l.d]) : 0.f;
-  }
-}
-
-// 64 rows x kDims dims of x into a [64][kDims] float32 tile, zero-filled.
-template <typename T>
-__device__ __forceinline__ void stage_dims(float* dst, const T* x,
-                                           const Layout& l, int row0,
-                                           int rows, int d0, int hd) {
-  for (int i = threadIdx.x; i < kRows * kDims; i += kThreads) {
-    const int r = i / kDims, c = i % kDims;
-    const int row = row0 + r, d = d0 + c;
-    dst[r * kDims + c] =
-        row < rows && d < hd ? to_f<T>(x[row * l.t + d * l.d]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum over hd of a[ty + 16 i] . b[tx + 8 j], the rows of a
-// from a0 and of b from b0, streamed kChunk dims at a time through as, bs.
-template <typename T>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][8], float* as,
-                                         float* bs, const T* a,
-                                         const Layout& la, int a0,
-                                         const T* b, const Layout& lb, int b0,
-                                         int rows, int hd, int ty, int tx) {
-  for (int c0 = 0; c0 < hd; c0 += kChunk) {
-    stage_chunk<T>(as, a, la, a0, rows, c0, hd);
-    stage_chunk<T>(bs, b, lb, b0, rows, c0, hd);
-    __syncthreads();
-    const int cn = min(kChunk, hd - c0);
-#pragma unroll 4
-    for (int c = 0; c < cn; ++c) {
-      float x[4], y[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = as[(ty + 16 * i) * kCS + c];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) y[j] = bs[(tx + 8 * j) * kCS + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Max (or sum) over the 8 threads of a row (tx 0..7, neighbouring lanes).
-__device__ __forceinline__ float row_max(float x) {
+__device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-__device__ __forceinline__ float row_sum(float x) {
+__device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * (2 * kRows * kCS + kRows * kDims + kRows * kPS);
+// the K/V ring's slots: three (copies two steps ahead) up to a width of
+// 64, where 7 tiles leave three blocks an SM; two above (a third slot cost
+// hd 80 17 % on an H100: PERF.md section 6)
+__host__ __device__ constexpr int fwd16_slots(int width) {
+  return width <= 64 ? 3 : 2;
 }
 
-template <typename T, bool kTwoPass, bool kWriteLse>
+constexpr size_t fwd16_smem(int width) {
+  return sizeof(uint16_t) * (1 + 2 * fwd16_slots(width)) * kRows *
+         (width + 8);
+}
+
+template <typename T, int kD, bool kTwoPass>
 __global__ void __launch_bounds__(kThreads)
 attn_general_fwd(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, Strides st, int H, int Tn, int hd,
-                 int nv, int n_qt, int n_dc, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [64][kCS]  q chunk
-  float* ks = qs + kRows * kCS;           // [64][kCS]  k chunk
-  float* vs = ks + kRows * kCS;           // [64][kDims] v, this block's dims
-  float* ps = vs + kRows * kDims;         // [64][kPS]  P [row][key]
+                 int nv, int n_qt, int n_dc, float scale, bool aligned) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const bool wide = hd > kD;
+  const int width = wide ? kD : round_up(hd, 16);
+  const int ld = width + 8, tile = kRows * ld;
+  const int slots = wide ? 1 : fwd16_slots(width);
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + tile;                      // `slots` tiles
+  T* vs = ks + slots * tile;              // `slots` tiles
 
   long long blk = blockIdx.x;
   const int qt = n_qt - 1 - static_cast<int>(blk % n_qt);  // heaviest first
@@ -204,483 +131,278 @@ attn_general_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int dc = static_cast<int>(blk % n_dc);
   const long long bh = blk / n_dc;
   const long long b = bh / H, h = bh % H;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  const int row0 = qt * kRows, d0 = dc * kDims;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = qt * kRows, d0 = dc * kD;
   const T* qh = q + b * st.q.b + h * st.q.h;
   const T* kh = k + b * st.k.b + h * st.k.h;
   const T* vh = v + b * st.v.b + h * st.v.h;
+  // output dims of this block, in 16-dim steps
+  const int n_out16 = (min(width, hd - d0) + 15) / 16;
 
   const int last_row = min(row0 + kRows - 1, Tn - 1);
   const int n_kt = min(max(last_row, nv - 1), Tn - 1) / kRows + 1;
-
-  // scores of the 64 x 64 tile at key0, scaled; -inf where hidden
-  auto scores = [&](int key0, float (&s)[4][8]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    dot_tile<T>(s, qs, ks, qh, st.q, row0, kh, st.k, key0, Tn, hd, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = key0 + tx + 8 * j;
-        s[i][j] = c < Tn && c <= max(r, nv - 1) ? s[i][j] * scale
-                                                : -CUDART_INF_F;
-      }
-    }
-  };
-  // o[i][j] += P[row ty + 16 i][key] v[key][d0 + tx + 8 j] over the tile
-  auto pv = [&](int key0, const float (&p)[4][8], float (&o)[4][8]) {
-    stage_dims<T>(vs, vh, st.v, key0, Tn, d0, hd);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        ps[(ty + 16 * i) * kPS + tx + 8 * j] = round_as<T>(p[i][j]);
-    __syncthreads();
-    const int keys = min(kRows, Tn - key0);
-#pragma unroll 4
-    for (int c = 0; c < keys; ++c) {
-      float x[4], y[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) y[j] = vs[c * kDims + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[i][j] = fmaf(x[i], y[j], o[i][j]);
-    }
-    __syncthreads();
+  const int steps = kTwoPass ? 2 * n_kt : n_kt;
+  // one key tile: k and v are staged once, for both passes
+  const bool single = n_kt == 1 && !wide;
+  const float sl2 = scale * kLog2e;
+  auto needs_v = [&](int s) { return !kTwoPass || s >= n_kt; };
+  auto tile_of = [&](int s) { return s >= n_kt ? s - n_kt : s; };
+  // step s's K (and V where P.V runs) into slot s % slots
+  auto stage_step = [&](int s) {
+    const int key0 = tile_of(s) * kRows, slot = (s % slots) * tile;
+    stage(ks + slot, ld, kh, st.k.t, st.k.d, key0, Tn, 0, hd, width, aligned,
+          tid, kThreads);
+    if (needs_v(s) || single)
+      stage(vs + slot, ld, vh, st.v.t, st.v.d, key0, Tn, 0, hd, width,
+            aligned, tid, kThreads);
   };
 
-  float m[4], l[4], o[4][8];
+  float o[kD / 8][4], m[2], l[2], inv_l[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     m[i] = -CUDART_INF_F;
     l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+    inv_l[i] = 1.f;
   }
-  // the running max and sum; key 0 is visible to every row, so after the
-  // first tile m is finite (exp(-inf - m) = 0 for hidden keys)
-  for (int kt = 0; kt < n_kt; ++kt) {
-    float s[4][8];
-    scores(kt * kRows, s);
+
+  // one copy group a step, committed even when empty, so that before step
+  // s exactly slots - 2 later groups may still fly
+  if (!wide) {
+    stage(qs, ld, qh, st.q.t, st.q.d, row0, Tn, 0, hd, width, aligned, tid,
+          kThreads);
+    stage_step(0);
+    cp_async_commit();
+    if (slots == 3) {
+      if (!single && steps > 1) stage_step(1);
+      cp_async_commit();
+    }
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int key0 = tile_of(s) * kRows;
+    const bool pv = needs_v(s);
+    float sc[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = s[i][0];
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        l[i] += s[i][j];
-        if (!kTwoPass) o[i][j] *= alpha;
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    const T* kt_s = ks;
+    const T* vt_s = vs;
+    if (!wide) {
+      // step s has landed, and every warp is done with step s - 1's slot
+      if (slots == 3)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      if (!single) {
+        if (s + slots - 1 < steps) stage_step(s + slots - 1);
+        cp_async_commit();
+        kt_s += (s % slots) * tile;
+        vt_s += (s % slots) * tile;
+      }
+      abt16<T, kD / 16>(sc, qs, kt_s, ld, width / 16, warp, lane);
+    } else {
+      // hd > kD: the scores over kD-dim windows of q and k, restaged
+      for (int w0 = 0; w0 < hd; w0 += kD) {
+        const int dn = min(kD, hd - w0);
+        __syncthreads();
+        stage(qs, ld, qh, st.q.t, st.q.d, row0, Tn, w0, dn, kD, aligned, tid,
+              kThreads);
+        stage(ks, ld, kh, st.k.t, st.k.d, key0, Tn, w0, dn, kD, aligned, tid,
+              kThreads);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        abt16<T, kD / 16>(sc, qs, ks, ld, (dn + 15) / 16, warp, lane);
       }
     }
-    if (!kTwoPass) pv(kt * kRows, s, o);
+    // scale into log2 units; hidden keys -inf (key 0 is visible to every
+    // row, so each row's max is finite after the first tile).  A tile that
+    // every row of the block sees whole skips the test.
+    const int last_key = key0 + kRows - 1;
+    const bool whole = last_key < Tn && last_key <= max(row0, nv - 1);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = key0 + nt * 8 + tq * 2 + (e & 1);
+        const int r = row0 + warp * 16 + g + 8 * (e >> 1);
+        sc[nt][e] = whole || (c < Tn && c <= max(r, nv - 1))
+                        ? sc[nt][e] * sl2
+                        : -CUDART_INF_F;
+      }
+    if (!kTwoPass || s < n_kt) {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = exp2f(sc[nt][e] - m[e >> 1]);
+          l[e >> 1] += sc[nt][e];
+        }
+      if (!kTwoPass) {
+#pragma unroll
+        for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+      }
+    } else {
+      if (s == n_kt) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) inv_l[i] = 1.f / quad_sum(l[i]);
+      }
+      // _fused_kernel's p: exactly normalised, then rounded (in pack_a)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[nt][e] = exp2f(sc[nt][e] - m[e >> 1]) * inv_l[e >> 1];
+    }
+    if (pv) {
+      if (wide) {
+        __syncthreads();
+        stage(vs, ld, vh, st.v.t, st.v.d, key0, Tn, d0, min(kD, hd - d0), kD,
+              aligned, tid, kThreads);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      // P rounded to T in the A fragments of P.V
+      uint32_t pa[4][4];
+      pack_a<T>(pa, sc);
+      ax16<T, kD / 8>(o, pa, vt_s, ld, n_out16, lane);
+    }
   }
+  if (!kTwoPass) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) l[i] = row_sum(l[i]);
-  if (kTwoPass) {
-    // _fused_kernel's p: exactly normalised, then rounded (in pv)
-    for (int kt = 0; kt < n_kt; ++kt) {
-      float s[4][8];
-      scores(kt * kRows, s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = expf(s[i][j] - m[i]) / l[i];
-      pv(kt * kRows, s, o);
+    for (int i = 0; i < 2; ++i) {
+      l[i] = quad_sum(l[i]);
+      inv_l[i] = 1.f / l[i];
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + warp * 16 + g + 8 * i;
     if (r >= Tn) continue;
-    if (kWriteLse && dc == 0 && tx == 0)
-      lse[bh * Tn + r] = m[i] + logf(l[i]);
-    const float inv = kTwoPass ? 1.f : 1.f / l[i];
+    if (!kTwoPass && lse != nullptr && dc == 0 && tq == 0)
+      lse[bh * Tn + r] = m[i] * kLn2 + logf(l[i]);
+    const float inv = kTwoPass ? 1.f : inv_l[i];
     T* orow = out + b * st.o.b + h * st.o.h + r * st.o.t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + tx + 8 * j;
-      if (d < hd) orow[d * st.o.d] = from_f<T>(o[i][j] * inv);
-    }
-  }
-}
-
-// delta[b, h, t] = sum_d dO * o over [B, T, H, hd] rows, a warp a row; the
-// warp zeroes the row's float32 dq accumulator.
-template <typename T>
-__global__ void __launch_bounds__(256)
-attn_general_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta,
-                       float* __restrict__ dq_accum, long long n_rows, int Tn,
-                       int H, int hd) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const long long at = row * hd;
-  float sum = 0.f;
-  for (int d = lane; d < hd; d += 32) {
-    sum = fmaf(to_f<T>(o[at + d]), to_f<T>(dout[at + d]), sum);
-    dq_accum[at + d] = 0.f;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) {
-    const long long h = row % H, bt = row / H;
-    delta[((bt / Tn) * H + h) * Tn + bt % Tn] = sum;
-  }
-}
-
-constexpr size_t bwd_smem_bytes() {
-  // score chunks (q, k, dO, v) or the tile's q and dO dims; k's dims; P^T
-  // and dS^T; L and delta
-  return sizeof(float) *
-         (4 * kRows * kCS + kRows * kDims + 2 * kRows * kPS + 2 * kRows);
-}
-
-// One block a (batch x head, 64 output dims, 64-key tile): for every query
-// tile that sees its keys, S^T and dP^T over the whole hd, P^T and dS^T,
-// then dV += P^T dO and dK += dS^T q for its dims, and dQ = dS k for its
-// dims added into the accumulator.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_general_bwd(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, float* __restrict__ dq_accum, int H,
-                 int Tn, int hd, int nv, int n_kt, int n_dc, float scale) {
-  extern __shared__ float smem[];
-  float* qc = smem;                       // [64][kCS] q chunk; later q dims
-  float* kc = qc + kRows * kCS;           // [64][kCS] k chunk
-  float* oc = kc + kRows * kCS;           // [64][kCS] dO chunk; later dO dims
-  float* vc = oc + kRows * kCS;           // [64][kCS] v chunk
-  float* qd = qc;                         // [64][kDims] (qc, kc reused)
-  float* od = qd + kRows * kDims;         // [64][kDims] (kc, oc reused)
-  float* kd = vc + kRows * kCS;           // [64][kDims] k, this block's dims
-  float* ps = kd + kRows * kDims;         // [64][kPS] P^T [key][query]
-  float* ds = ps + kRows * kPS;           // [64][kPS] dS^T
-  float* ls = ds + kRows * kPS;           // [64]
-  float* dls = ls + kRows;                // [64]
-
-  long long blk = blockIdx.x;
-  const int kt = static_cast<int>(blk % n_kt);  // tile 0 is the heaviest
-  blk /= n_kt;
-  const int dc = static_cast<int>(blk % n_dc);
-  const long long bh = blk / n_dc;
-  const long long b = bh / H, h = bh % H;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  const int key0 = kt * kRows, d0 = dc * kDims;
-  const long long tok = static_cast<long long>(H) * hd;
-  const long long base = b * Tn * tok + h * hd;
-  const Layout lay = {0, 0, tok, 1};
-  const T* qh = q + base;
-  const T* kh = k + base;
-  const T* vh = v + base;
-  const T* oh = dout + base;
-
-  stage_dims<T>(kd, kh, lay, key0, Tn, d0, hd);
-  float dka[4][8], dva[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  const int n_qt = (Tn + kRows - 1) / kRows;
-  for (int qt = key0 < nv ? 0 : kt; qt < n_qt; ++qt) {
-    const int q0 = qt * kRows;
-    if (threadIdx.x < kRows) {
-      const int r = q0 + threadIdx.x;
-      ls[threadIdx.x] = r < Tn ? lse[bh * Tn + r] : 0.f;
-      dls[threadIdx.x] = r < Tn ? delta[bh * Tn + r] : 0.f;
-    }
-    // s = S^T, dp = dP^T: keys ty + 16 i, queries tx + 8 j
-    float s[4][8], dp[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
-    dot_tile<T>(s, kc, qc, kh, lay, key0, qh, lay, q0, Tn, hd, ty, tx);
-    dot_tile<T>(dp, vc, oc, vh, lay, key0, oh, lay, q0, Tn, hd, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = key0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 8 * j, r = q0 + col;
-        const bool vis = r < Tn && c < Tn && c <= max(r, nv - 1);
-        const float p = vis ? expf(s[i][j] * scale - ls[col]) : 0.f;
-        ps[(ty + 16 * i) * kPS + col] = round_as<T>(p);
-        ds[(ty + 16 * i) * kPS + col] = round_as<T>(p * (dp[i][j] - dls[col]));
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      const int d = d0 + nd * 8 + tq * 2;
+      if (nd * 8 >= width || d >= hd) continue;
+      const float lo = o[nd][2 * i] * inv, hi = o[nd][2 * i + 1] * inv;
+      if (aligned) {
+        *reinterpret_cast<uint32_t*>(orow + d) = pack2<T>(lo, hi);
+      } else {
+        orow[d * st.o.d] = from_f<T>(lo);
+        if (d + 1 < hd) orow[(d + 1) * st.o.d] = from_f<T>(hi);
       }
     }
-    stage_dims<T>(qd, qh, lay, q0, Tn, d0, hd);
-    stage_dims<T>(od, oh, lay, q0, Tn, d0, hd);
-    __syncthreads();
-    const int rows = min(kRows, Tn - q0);
-#pragma unroll 2
-    for (int r = 0; r < rows; ++r) {
-      float pa[4], da[4], ob[8], qb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = ps[(ty + 16 * i) * kPS + r];
-        da[i] = ds[(ty + 16 * i) * kPS + r];
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ob[j] = od[r * kDims + tx + 8 * j];
-        qb[j] = qd[r * kDims + tx + 8 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          dva[i][j] = fmaf(pa[i], ob[j], dva[i][j]);
-          dka[i][j] = fmaf(da[i], qb[j], dka[i][j]);
-        }
-    }
-    // dQ of queries q0 + ty + 16 i, dims d0 + tx + 8 j over this tile's keys
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    const int keys = min(kRows, Tn - key0);
-#pragma unroll 2
-    for (int c = 0; c < keys; ++c) {
-      float a[4], kb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ds[c * kPS + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kb[j] = kd[c * kDims + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], kb[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      if (r >= Tn) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int d = d0 + tx + 8 * j;
-        if (d < hd) atomicAdd(dq_accum + base + r * tok + d, acc[i][j]);
-      }
-    }
-    __syncthreads();                      // before the next tile restages
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = key0 + ty + 16 * i;
-    if (c >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = d0 + tx + 8 * j;
-      if (d >= hd) continue;
-      dk[base + c * tok + d] = from_f<T>(dka[i][j] * scale);
-      dv[base + c * tok + d] = from_f<T>(dva[i][j]);
-    }
   }
 }
 
-// dq = scale * dq_accum in the input type, n elements.
-template <typename T>
-__global__ void __launch_bounds__(256)
-attn_general_dq_convert(const float* __restrict__ acc, T* __restrict__ dq,
-                        long long n, float scale) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    dq[i] = from_f<T>(acc[i] * scale);
-}
-
-constexpr long long kMaxBlocks = 2147483647LL;
-
-template <typename T, bool kTwoPass, bool kWriteLse>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, void* lse, const Strides& st, int B, int H,
-                       int Tn, int hd, int nv, float scale,
-                       cudaStream_t stream) {
-  const int n_qt = (Tn + kRows - 1) / kRows, n_dc = (hd + kDims - 1) / kDims;
-  const long long blocks = static_cast<long long>(B) * H * n_dc * n_qt;
+template <typename T, int kD, bool kTwoPass>
+cudaError_t launch_fwd16(const FwdArgs& a) {
+  const bool wide = a.hd > kD;
+  const int n_qt = (a.T + kRows - 1) / kRows;
+  const int n_dc = wide ? (a.hd + kD - 1) / kD : 1;
+  const long long blocks = static_cast<long long>(a.B) * a.H * n_dc * n_qt;
   if (blocks > kMaxBlocks) return cudaErrorInvalidValue;
-  auto* kern = attn_general_fwd<T, kTwoPass, kWriteLse>;
-  constexpr size_t smem = fwd_smem_bytes();
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  auto* kern = attn_general_fwd<T, kD, kTwoPass>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(
+      kern, std::max(fwd16_smem(kD), fwd16_smem(std::min(kD, 64))),
+      smem_set);
   if (err != cudaSuccess) return err;
-  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), st, H, Tn, hd, nv, n_qt, n_dc, scale);
+  const size_t smem = wide ? sizeof(uint16_t) * 3 * kRows * (kD + 8)
+                           : fwd16_smem(round_up(a.hd, 16));
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out),
+      static_cast<float*>(a.lse), a.st, a.H, a.T, a.hd, a.nv, n_qt, n_dc,
+      a.scale, a.aligned != 0);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_fwd_mode(const void* q, const void* k, const void* v,
-                            void* out, void* lse, const Strides& st, int B,
-                            int H, int Tn, int hd, int nv, int two_pass,
-                            float scale, cudaStream_t stream) {
-  if (two_pass)
-    return launch_fwd<T, true, false>(q, k, v, out, lse, st, B, H, Tn, hd,
-                                      nv, scale, stream);
-  if (lse != nullptr)
-    return launch_fwd<T, false, true>(q, k, v, out, lse, st, B, H, Tn, hd,
-                                      nv, scale, stream);
-  return launch_fwd<T, false, false>(q, k, v, out, lse, st, B, H, Tn, hd, nv,
-                                     scale, stream);
+template <typename T, int kD>
+cudaError_t launch_fwd16_mode(const FwdArgs& a) {
+  return a.two_pass ? launch_fwd16<T, kD, true>(a)
+                    : launch_fwd16<T, kD, false>(a);
 }
 
 template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, void* dq_accum, int B, int Tn,
-                       int H, int hd, int nv, float scale,
-                       cudaStream_t stream) {
-  const int n_kt = (Tn + kRows - 1) / kRows, n_dc = (hd + kDims - 1) / kDims;
-  const long long blocks = static_cast<long long>(B) * H * n_dc * n_kt;
-  if (blocks > kMaxBlocks) return cudaErrorInvalidValue;
-  constexpr size_t smem = bwd_smem_bytes();
-  const cudaError_t err = cudaFuncSetAttribute(
-      attn_general_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  attn_general_bwd<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                        stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dq_accum),
-      H, Tn, hd, nv, n_kt, n_dc, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_delta(const void* o, const void* dout, void* delta,
-                         void* dq_accum, int B, int Tn, int H, int hd,
-                         cudaStream_t stream) {
-  const long long rows = static_cast<long long>(B) * Tn * H;
-  const long long blocks = (rows + 7) / 8;
-  if (blocks > kMaxBlocks) return cudaErrorInvalidValue;
-  attn_general_bwd_delta<T><<<static_cast<unsigned>(blocks), 256, 0,
-                              stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(delta), static_cast<float*>(dq_accum), rows, Tn, H,
-      hd);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_convert(const void* acc, void* dq, long long n,
-                           float scale, cudaStream_t stream) {
-  const long long blocks = std::min((n + 255) / 256, 1LL << 20);
-  attn_general_dq_convert<T><<<static_cast<unsigned>(blocks), 256, 0,
-                               stream>>>(static_cast<const float*>(acc),
-                                         static_cast<T*>(dq), n, scale);
-  return cudaGetLastError();
-}
-
-// dtype codes of the entry points: 0 float32, 1 bfloat16, 2 float16
-#define VG_DISPATCH(dtype, call_f32, call_bf16, call_f16)        \
-  switch (dtype) {                                               \
-    case 0:                                                      \
-      return static_cast<int>(call_f32);                         \
-    case 1:                                                      \
-      return static_cast<int>(call_bf16);                        \
-    case 2:                                                      \
-      return static_cast<int>(call_f16);                         \
-    default:                                                     \
-      return static_cast<int>(cudaErrorInvalidValue);            \
+cudaError_t launch_fwd16_dims(const FwdArgs& a) {
+  switch (a.d_max) {
+    case 64:
+      return launch_fwd16_mode<T, 64>(a);
+    case 128:
+      return launch_fwd16_mode<T, 128>(a);
+    case 256:
+      return launch_fwd16_mode<T, 256>(a);
+    default:
+      return cudaErrorInvalidValue;
   }
+}
 
 }  // namespace
+}  // namespace vg_attn
 
 extern "C" {
 
-// q, k, v, out: [B, H, T, hd] of `dtype` at the element strides
-// strides[0..15] = (b, h, t, d) of q, k, v, out; lse: float32 [B, H, T] or
-// null (the online mode only); two_pass 1 normalises p before P.V
-// (_fused_kernel's arithmetic) and writes no lse.  nv = T sees every key.
+// q, k, v, out: [B, H, T, hd] of `dtype` (0 float32, 1 bfloat16, 2
+// float16) at the element strides strides[0..15] = (b, h, t, d) of q, k,
+// v, out; lse: float32 [B, H, T] or null (the online mode only); two_pass
+// 1 normalises p before P.V (_fused_kernel's arithmetic) and writes no
+// lse.  nv = T sees every key.  d_max: the head-dim maximum of the
+// instantiation (64, 128 or 256; wider heads take 256-dim output blocks);
+// aligned 1: every row of q, k, v and out on 16 bytes (checked here).
 int attn_general_fwd_launch(const void* q, const void* k, const void* v,
                             void* out, void* lse, const long long* strides,
                             int B, int H, int T, int hd, int nv, int two_pass,
-                            int dtype, float scale, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || hd < 1 || (two_pass && lse != nullptr))
+                            int dtype, float scale, int d_max, int aligned,
+                            void* stream) {
+  using namespace vg_attn;
+  if (B < 1 || H < 1 || T < 1 || hd < 1 || dtype < 0 || dtype > 2 ||
+      (two_pass && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Strides st;
-  Layout* ls[4] = {&st.q, &st.k, &st.v, &st.o};
-  for (int i = 0; i < 4; ++i)
+  FwdArgs a{q, k, v, out, lse, {}, B, H, T, hd, nv, two_pass, d_max, aligned,
+            scale, static_cast<cudaStream_t>(stream)};
+  Layout* ls[4] = {&a.st.q, &a.st.k, &a.st.v, &a.st.o};
+  const void* ps[4] = {q, k, v, out};
+  const int vec = dtype == 0 ? 4 : 8;
+  for (int i = 0; i < 4; ++i) {
     *ls[i] = {strides[4 * i], strides[4 * i + 1], strides[4 * i + 2],
               strides[4 * i + 3]};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VG_DISPATCH(dtype,
-              launch_fwd_mode<float>(q, k, v, out, lse, st, B, H, T, hd, nv,
-                                     two_pass, scale, s),
-              launch_fwd_mode<__nv_bfloat16>(q, k, v, out, lse, st, B, H, T,
-                                             hd, nv, two_pass, scale, s),
-              launch_fwd_mode<__half>(q, k, v, out, lse, st, B, H, T, hd, nv,
-                                      two_pass, scale, s))
-}
-
-// o, dout: [B, T, H, hd] of `dtype`, contiguous; delta: float32 [B, H, T];
-// dq_accum: float32 [B, T, H, hd], zeroed here.
-int attn_general_bwd_delta_launch(const void* o, const void* dout,
-                                  void* delta, void* dq_accum, int B, int T,
-                                  int H, int hd, int dtype, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || hd < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VG_DISPATCH(dtype,
-              launch_delta<float>(o, dout, delta, dq_accum, B, T, H, hd, s),
-              launch_delta<__nv_bfloat16>(o, dout, delta, dq_accum, B, T, H,
-                                          hd, s),
-              launch_delta<__half>(o, dout, delta, dq_accum, B, T, H, hd, s))
-}
-
-// q, k, v, dout, dk, dv: [B, T, H, hd] of `dtype`, contiguous; lse, delta:
-// float32 [B, H, T]; dq_accum: float32 [B, T, H, hd], zeroed, summed into
-// unscaled.
-int attn_general_bwd_launch(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dk, void* dv,
-                            void* dq_accum, int B, int T, int H, int hd,
-                            int nv, int dtype, float scale, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || hd < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VG_DISPATCH(dtype,
-              launch_bwd<float>(q, k, v, dout, lse, delta, dk, dv, dq_accum,
-                                B, T, H, hd, nv, scale, s),
-              launch_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv,
-                                        dq_accum, B, T, H, hd, nv, scale, s),
-              launch_bwd<__half>(q, k, v, dout, lse, delta, dk, dv, dq_accum,
-                                 B, T, H, hd, nv, scale, s))
-}
-
-// dq (n elements of `dtype`) = scale * dq_accum.
-int attn_general_dq_convert_launch(const void* dq_accum, void* dq,
-                                   long long n, int dtype, float scale,
-                                   void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  VG_DISPATCH(dtype, launch_convert<float>(dq_accum, dq, n, scale, s),
-              launch_convert<__nv_bfloat16>(dq_accum, dq, n, scale, s),
-              launch_convert<__half>(dq_accum, dq, n, scale, s))
+    if (aligned && !rows_aligned(ps[i], *ls[i], B, H, T, hd, vec))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(fwd32_launch(a));
+    case 1:
+      return static_cast<int>(launch_fwd16_dims<__nv_bfloat16>(a));
+    default:
+      return static_cast<int>(launch_fwd16_dims<__half>(a));
+  }
 }
 
 }  // extern "C"

@@ -71,13 +71,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_bwd_dq_convert_launch.argtypes = [p, p, ctypes.c_longlong, i, p]
     lib.flash_bwd_dq_convert_launch.restype = i
     lib.attn_general_fwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, i, f, p]
+                                            i, i, f, i, i, p]
     lib.attn_general_fwd_launch.restype = i
     lib.attn_general_bwd_delta_launch.argtypes = [p, p, p, p, i, i, i, i, i,
                                                   p]
     lib.attn_general_bwd_delta_launch.restype = i
     lib.attn_general_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
-                                            i, i, i, i, f, p]
+                                            i, i, i, i, f, i, i, p]
     lib.attn_general_bwd_launch.restype = i
     lib.attn_general_dq_convert_launch.argtypes = [p, p, ctypes.c_longlong,
                                                    i, f, p]

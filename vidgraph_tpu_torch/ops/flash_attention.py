@@ -34,14 +34,17 @@ hd 64 (the base, chat and mid-scale widths) or 128
 (``CaptionerConfig.large()``) takes the kernels above ("wgmma"); every
 other input the TPU kernel takes (float32, float16, any hd: the tiny and
 tiny64 captioners' hd 32, widths such as 640 / 8 heads = 80) takes the
-general kernels of ``csrc/attention_general.cu`` ("general":
+general kernels of ``csrc/attention_general*.cu`` ("general":
 ``attn_general_fwd``, ``attn_general_bwd_delta``, ``attn_general_bwd``,
-``attn_general_dq_convert``), which compute the same function with
-float32 products and sums on the CUDA cores: float32 inputs are never
-rounded (no TF32), 16-bit inputs get the wgmma kernels' roundings.  Both
-routes take any T and any B x h (the wgmma kernels fold B x h over two
-grid dimensions).  A CUDA tensor never takes the plain version: a failed
-build or launch raises.
+``attn_general_dq_convert``), which compute the same function: 16-bit
+inputs on ``mma.sync`` tensor-core products with the wgmma kernels'
+roundings, float32 inputs with float32 FMAs (never rounded, no TF32).
+``general_plan`` picks their instantiation: the head-dim maximum (the
+forward 64, 128 or 256, the backward 64 or 128; wider heads take output
+blocks of that width) and whether every row lies on 16 bytes (cp.async
+copies; else element loads).  Both routes take any T and any B x h (the
+wgmma kernels fold B x h over two grid dimensions).  A CUDA tensor never
+takes the plain version: a failed build or launch raises.
 
 Numerics of the wgmma route: q, k, v and the output are bfloat16
 [B, T, h, hd]; scores, the running max and sum and the output are
@@ -90,6 +93,9 @@ FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the head dims flash_attention.cu is instantiated for (bfloat16)
 WGMMA_HEAD_DIMS = (64, 128)
+# the head-dim maxima the general kernels are instantiated for: forward,
+# backward (dK and dV of 16 keys x 128 dims fill half a thread's registers)
+GENERAL_FWD_DIMS, GENERAL_BWD_DIMS = (64, 128, 256), (64, 128)
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_delta": 0,
                             "flash_bwd_fused": 0, "flash_bwd_dq_convert": 0,
@@ -121,6 +127,31 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
         raise ValueError(f"head dim {hd}")
     return ("wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
             else "general")
+
+
+def general_plan(hd: int, *tensors: torch.Tensor,
+                 backward: bool = False) -> Tuple[int, bool]:
+    """The general kernels' instantiation for [B, h, T, hd] views (any
+    order of the first three dims) of one float type: (the smallest
+    head-dim maximum that holds ``hd``, else the largest, whose output
+    blocks then split hd; whether every row of every tensor lies on 16
+    bytes: pointers and the strides of dims longer than 1 on 16 bytes, hd
+    contiguous and a whole number of 16-byte chunks)."""
+    dims = GENERAL_BWD_DIMS if backward else GENERAL_FWD_DIMS
+    d_max = next((d for d in dims if hd <= d), dims[-1])
+    vec = 16 // tensors[0].element_size()
+    if hd % vec:
+        return d_max, False
+    for x in tensors:
+        if x.data_ptr() % 16:
+            return d_max, False
+        # a contiguous view's strides are multiples of hd
+        if not x.is_contiguous():
+            st = x.stride()
+            if st[3] != 1 or any(st[i] % vec for i in range(3)
+                                 if x.shape[i] > 1):
+                return d_max, False
+    return d_max, True
 
 
 def tolerance(dtype: torch.dtype) -> Tuple[float, float]:
@@ -243,10 +274,8 @@ def _check_inputs(route: str, **tensors: torch.Tensor) -> None:
         raise ValueError("T = 0: the kernels take at least one token")
 
 
-def _bhtd(x: torch.Tensor, heads_first: bool) -> Tuple[int, ...]:
-    """x's element strides in (batch, head, token, dim) order."""
-    st = x.stride()
-    return st if heads_first else (st[0], st[2], st[1], st[3])
+# the four views' element strides, each in (batch, head, token, dim) order
+_Strides16 = ctypes.c_longlong * 16
 
 
 def general_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -261,14 +290,18 @@ def general_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, h, t, hd = q.shape
     else:
         b, t, h, hd = q.shape
-    strides = (ctypes.c_longlong * 16)(*(
-        s for x in (q, k, v, out) for s in _bhtd(x, heads_first)))
+    st = []
+    for x in (q, k, v, out):
+        s = x.stride()
+        st.extend(s if heads_first else (s[0], s[2], s[1], s[3]))
+    strides = _Strides16(*st)
+    d_max, aligned = general_plan(hd, q, k, v, out)
     lib = _build.library()
     _build.check(lib.attn_general_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         ctypes.addressof(strides), b, h, t, hd, nv, int(two_pass),
-        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), d_max, int(aligned),
         torch.cuda.current_stream().cuda_stream), "attn_general_fwd")
 
 
@@ -410,13 +443,14 @@ def _cuda_general_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_accum(dq_accum, q)
     lib = _build.library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    d_max, aligned = general_plan(hd, q, k, v, dout, dk, dv, backward=True)
     with torch.cuda.device(q.device):
         _build.check(lib.attn_general_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dq_accum.data_ptr(), b, t, h, hd, nv, DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream),
-            "attn_general_bwd")
+            1.0 / math.sqrt(hd), d_max, int(aligned),
+            torch.cuda.current_stream().cuda_stream), "attn_general_bwd")
         LAUNCHES["flash_bwd_general"] += 1
     return dk, dv
 

@@ -31,8 +31,8 @@ ViT-B/32 heads) takes the kernel above ("mma"); every other input that
 mode of ``csrc/attention_general.cu``'s ``attn_general_fwd`` ("general",
 at any strides; see ``ops/flash_attention.py::general_forward``): pass 1
 the row max and sum, pass 2 p normalised and rounded to v's type before
-P.V, as ``_fused_kernel`` does, with float32 products and sums on the
-CUDA cores.
+P.V, as ``_fused_kernel`` does; 16-bit inputs on the tensor cores
+(``mma.sync``), float32 with float32 FMAs.
 
 Dispatch: ``fused_short_attention`` takes the plain version for a tensor
 on the CPU; a CUDA tensor launches a kernel or raises.  An odd head count raises, as in the JAX package.

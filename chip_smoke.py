@@ -425,6 +425,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 STORE_ROWS, STORE_COUNT, DIM = 200_000, 199_937, 512
+# phase 2: the selection kernel's k (past the lists) on the dense scores
+SELECT_K = (100, 1000)
 # phase 8: bf16 prefill logits with and without the kernel (8 layers of
 # one-ulp differences in the attention output; logits of about unit scale)
 LOGIT_TOL = 0.05
@@ -532,6 +534,12 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
                                                 STORE_COUNT))
     check_topk(tc, queries[:4], store, 5, 3)        # k above the count
     check_topk(tc, queries[:4], store, 64, 100)     # count below one tile
+    # one launch a search up to a launch's queries
+    for b, k in ((1, 5), (16, 5), (30, 64)):
+        tc.reset_counts()
+        tc.cosine_topk(queries[:b], store, k, count=STORE_COUNT)
+        assert tc.LAUNCHES == {"score_topk": 1, "score_dense": 0,
+                               "select": 0}, (b, k, tc.LAUNCHES)
     dense = tc.cosine_scores(queries[:16], store, count=STORE_COUNT)
     torch.cuda.synchronize()
     dense_ref = tc.cosine_scores_ref(queries[:16], store, count=STORE_COUNT)
@@ -570,20 +578,13 @@ def phase_kernels(tc, seed: int, card: str) -> dict:
     library = {
         "topk_b1_k5": cuda_ms(lambda: library_topk(q[:1], store, past, 5)),
         "topk_b16_k5": cuda_ms(lambda: library_topk(q, store, past, 5)),
-        "score_topk_b16_k5": cuda_ms(
-            lambda: library_tile_topk(tc, q, store, past, 5)),
-        "merge_b16_k5": cuda_ms(lambda: torch.topk(
-            stages["partials"][0].view(16, -1), 5)),
         "dense_b16": cuda_ms(lambda: library_scores(q, store, past)),
     }
-    pv, pi = stages.pop("partials")
-    partial_bytes = pv.numel() * 4 + pi.numel() * 4
     log(f"phase 2 times on {card} (median of 20, ms) at 200,000 x 512 f32:",
         json.dumps(times), json.dumps(stages), "library:",
         json.dumps(library))
     return {"topk_err": topk_err, "score_err": score_err, "times": times,
-            "stages": stages, "library": library,
-            "partial_bytes": partial_bytes}
+            "stages": stages, "library": library}
 
 
 def library_scores(q, store, past):
@@ -600,17 +601,6 @@ def library_topk(q, store, past, k):
     return torch.topk(library_scores(q, store, past), k)
 
 
-def library_tile_topk(tc, q, store, past, k):
-    """The yardstick of the score kernel's top-k mode: the masked
-    scores, padded to whole segments, and ``torch.topk`` within each."""
-    n = store.shape[0]
-    tile = tc.segment_rows(n, store.device)
-    pad = -n % tile
-    scores = F.pad(library_scores(q, store, past), (0, pad),
-                   value=float("-inf"))
-    return torch.topk(scores.view(q.shape[0], -1, tile), k, dim=-1)
-
-
 def bound(nbytes: float, ops: float, peak: float) -> dict:
     """The least time the card could take: the larger of ``nbytes`` over
     the memory rate and ``ops`` over ``peak``."""
@@ -620,37 +610,55 @@ def bound(nbytes: float, ops: float, peak: float) -> dict:
 
 
 def time_topk_stages(tc, q, store, k: int = 5) -> dict:
-    """Each kernel of the top-k apart, at B=16, k=5: ``cosine_score_tile``
-    in top-k mode (per-segment partials) and ``cosine_topk_merge``, each
-    checked against its own plain version on the same inputs."""
-    from vidgraph_tpu_torch.core.profiling import cuda_ms
+    """Each kernel of the top-k apart, at B=16: ``cosine_score_tile`` in
+    top-k mode at k 5 (its lists, read from the launch's scratch, against
+    ``topk_partials_ref``; its last block's merge against
+    ``topk_merge_ref`` on those lists, bit for bit; the whole against
+    ``cosine_topk_ref``), and ``cosine_select`` at k 100 and 1000 on the
+    dense scores (bit for bit against ``select_ref``), each with the
+    plain version's time, the library call's and the bound."""
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
 
+    b = q.shape[0]
     tile = tc.segment_rows(store.shape[0], store.device)
-    pv, pi = tc.topk_partials(q, store, k, STORE_COUNT)
+    vals, idx, pv, pi = tc.topk_lists(q, store, k, STORE_COUNT)
     torch.cuda.synchronize()
     rv, _ = tc.topk_partials_ref(q, store, k, STORE_COUNT, tile)
     assert torch.equal(pv.isinf(), rv.isinf()), "partials past the store"
     finite = ~rv.isinf()
     partial_err = float((pv[finite] - rv[finite]).abs().max())
     assert partial_err <= TOL, f"top-k partials error {partial_err}"
-    vals, idx = tc.topk_merge(pv, pi, k)
-    torch.cuda.synchronize()
     mv, mi = tc.topk_merge_ref(pv, pi, k)
-    merge_err = float((vals - mv).abs().max())
-    assert merge_err == 0 and torch.equal(idx, mi), "merge disagrees"
-    return {
-        "partials": (pv, pi),
-        "score_topk_b16_k5": {
-            "kernel_ms": cuda_ms(
-                lambda: tc.topk_partials(q, store, k, STORE_COUNT)),
-            "plain_ms": cuda_ms(
-                lambda: tc.topk_partials_ref(q, store, k, STORE_COUNT, tile)),
-            "max_abs_err": partial_err},
-        "merge_b16_k5": {
-            "kernel_ms": cuda_ms(lambda: tc.topk_merge(pv, pi, k)),
-            "plain_ms": cuda_ms(lambda: tc.topk_merge_ref(pv, pi, k)),
-            "max_abs_err": merge_err},
-    }
+    assert torch.equal(vals, mv) and torch.equal(idx, mi), \
+        "the last block's merge disagrees with topk_merge_ref"
+    past = torch.arange(STORE_ROWS, device="cuda") >= STORE_COUNT
+    out = {"score_topk_b16_k5": {
+        "max_abs_err": check_topk(tc, q, store, k, STORE_COUNT),
+        "kernel_ms": cuda_ms(
+            lambda: tc.topk_lists(q, store, k, STORE_COUNT)),
+        "device_ms": graph_ms(
+            lambda: tc.topk_lists(q, store, k, STORE_COUNT)),
+        "plain_ms": cuda_ms(
+            lambda: tc.cosine_topk_ref(q, store, k, count=STORE_COUNT)),
+        "partials_plain_ms": cuda_ms(
+            lambda: tc.topk_partials_ref(q, store, k, STORE_COUNT, tile)),
+        "merge_plain_ms": cuda_ms(lambda: tc.topk_merge_ref(pv, pi, k)),
+        "partial_max_abs_err": partial_err,
+        **topk_bound(STORE_COUNT, DIM, 4, b, k)}}
+    scores = tc.cosine_scores(q, store, count=STORE_COUNT)
+    for kk in SELECT_K:
+        assert_select_exact(tc, scores, kk)
+        out[f"select_b{b}_k{kk}"] = {
+            "max_abs_err": 0.0,
+            "kernel_ms": cuda_ms(lambda: tc.select_topk(scores, kk)),
+            "device_ms": graph_ms(lambda: tc.select_topk(scores, kk)),
+            "plain_ms": cuda_ms(lambda: tc.select_ref(scores, kk)),
+            "library_ms": cuda_ms(lambda: torch.topk(scores, kk)),
+            # the scores read once, the k values and columns written
+            **bound(scores.numel() * 4 + b * kk * 8, 0.0, F32_FLOPS)}
+    out["library_topk_b16_k5"] = cuda_ms(
+        lambda: library_topk(q, store, past, k))
+    return out
 
 
 # ---------------------------------------------------------------- phases 3-4
@@ -822,7 +830,7 @@ def phase_main_path(tc, seed: int) -> dict:
     log(f"phase 3-4: launches in kg {kg}, in retrieval {retrieval}")
     assert kg["score_dense"] > 0, f"kg launched no dense scoring: {kg}"
     n_searches = bench.WARMUP + bench.N_QUERIES
-    assert min(retrieval["score_topk"], retrieval["merge"]) >= n_searches, \
+    assert retrieval["score_topk"] >= n_searches, \
         f"{n_searches} queries but launches {retrieval}"
     assert total["plain"] == 0, f"the plain version served {total}"
     assert all(cuda["texts"]), "an empty retrieval text"
@@ -2807,7 +2815,7 @@ def phase_streams(tc, seed: int, card: str) -> dict:
     assert counts["preprocess"] >= batches, counts
     assert counts["flash"] == vlm.cap_cfg.layers * batches, counts
     assert counts["cosine_score_topk"] > 0, counts
-    assert counts["cosine_merge"] == counts["cosine_score_topk"], counts
+    assert counts["cosine_select"] == 0, counts
     assert counts["plain"] == 0, f"a plain version served {counts}"
 
     for name, engine in engines.items():
@@ -3595,7 +3603,6 @@ def phase_tooling(seed: int, card: str) -> dict:
         topk = {key: sum(c["topk"][key] for c in stage_counts)
                 for key in stage_counts[0]["topk"]}
         assert topk["score_topk"] >= SWEEP_QUESTIONS and \
-            topk["merge"] >= SWEEP_QUESTIONS and \
             topk["score_dense"] >= 1 and topk["plain"] == 0, topk
         batches = json.loads((tmp / "sweep" / "epoch_000_batch_metrics.json")
                              .read_text())
@@ -3836,7 +3843,7 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts(tc)
     assert got == want, "world-1 sharded search differs from one card"
-    assert counts["score_topk"] >= 2 and counts["merge"] >= 2 and \
+    assert counts["score_topk"] >= 2 and counts["select"] == 0 and \
         counts["plain"] == 0, counts
     res["store"] = {"launches": counts, "ms": {
         f"b{b}": {"sharded": search_ms(sharded, queries[:b]),
@@ -3903,7 +3910,7 @@ def phase_mesh(tc, seed: int, card: str) -> dict:
     assert lead["chat_equal"] or lead["chat_ties"], lead["chat_texts"]
     for r in ranks:
         c = r["store_counts"]
-        assert c["score_topk"] >= 2 and c["merge"] >= 2 and \
+        assert c["score_topk"] >= 2 and c["select"] == 0 and \
             c["plain"] == 0, (r["rank"], c)
         assert r["chat_counts"]["flash"] == cfg.layers and \
             r["chat_counts"]["plain"] == 0, (r["rank"], r["chat_counts"])
@@ -4215,8 +4222,7 @@ def check_stream_launches(where: str, counts: dict, batches: int,
     assert counts["preprocess"] >= batches, (where, counts)
     assert counts["flash"] == layers * batches, (where, counts)
     assert not topk or counts["cosine_score_topk"] > 0, (where, counts)
-    assert counts["cosine_merge"] == counts["cosine_score_topk"], \
-        (where, counts)
+    assert counts["cosine_select"] == 0, (where, counts)
     assert counts["plain"] == 0, f"{where}: a plain version served {counts}"
 
 
@@ -4322,8 +4328,7 @@ def phase_leader(tc, seed: int, card: str) -> dict:
                               r["stream_counts"], n_batches,
                               vlm.cap_cfg.layers, topk=False)
         c = r["serve_counts"]
-        assert c["score_topk"] > 0 and c["merge"] > 0 and \
-            c["plain"] == 0, (r["rank"], c)
+        assert c["score_topk"] > 0 and c["plain"] == 0, (r["rank"], c)
     res["gloo_4_ranks_on_one_card"] = {
         "note": "one card, not a multi-card number", "wall_s": wall,
         "table": lead["table"], "timings": lead["timings"],
@@ -4344,7 +4349,7 @@ def phase_leader(tc, seed: int, card: str) -> dict:
                                        for r in ranks),
         **{k: counts[f"cosine_{k}"] + serve_counts[k] + sum(
             r["stream_counts"][f"cosine_{k}"] + r["serve_counts"][k]
-            for r in ranks) for k in ("score_topk", "merge")}}
+            for r in ranks) for k in ("score_topk", "select")}}
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 23: stream and serve under the rank-0 leader on {card} "
         f"(NCCL world 1; gloo {LEADER_RANKS} ranks on one card, not a "
@@ -4606,6 +4611,16 @@ def domain_topk(tc, q, store, k: int, count: int, device_ms: bool) -> dict:
     return row
 
 
+def assert_select_exact(tc, scores, k: int) -> None:
+    """``cosine_select`` against ``select_ref`` on the same dense scores:
+    values and columns equal, bit for bit."""
+    got = tc.select_topk(scores, k)
+    torch.cuda.synchronize()
+    ref = tc.select_ref(scores, k)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+        f"selection B={scores.shape[0]} k={k} differs from select_ref"
+
+
 def mirror_bytes(host: np.ndarray, dtype) -> tuple:
     """An ``EmbeddingStore`` of ``host``'s rows with a ``dtype`` mirror on
     the card: (the store, the bytes its mirror holds on the card)."""
@@ -4676,8 +4691,8 @@ def domain_retrieval(tc) -> dict:
     cpu_pools = pools(retriever, store, sample)
     os.environ["VIDGRAPH_TORCH_DEVICE"] = "cuda"
     assert all(texts), "an empty retrieval text"
-    assert counts["score_dense"] >= len(texts) and counts["plain"] == 0, \
-        counts
+    assert counts["score_dense"] >= len(texts) and \
+        counts["select"] >= len(texts) and counts["plain"] == 0, counts
     equal = [a == b for a, b in zip(texts, cpu_texts)]
     for i, same in enumerate(equal):
         assert len(gpu_pools[i]) == 100
@@ -4732,12 +4747,15 @@ def phase_domains(tc, seed: int, card: str) -> dict:
     res = {"large_k": {}, "wide_d": {}, "mirror": {}, "frames": {}}
     timed, searched = {}, {}
     tc.reset_counts()
+    scores = tc.cosine_scores(q, store, count=STORE_COUNT)
     for k in DOMAIN_K:
         for b in (1, 16):
             res["large_k"][f"b{b}_k{k}"] = domain_topk(tc, q[:b], store, k,
                                                        STORE_COUNT, False)
+            assert_select_exact(tc, scores[:b], k)
         ids = tc.cosine_topk(q[:1], store, k, count=STORE_COUNT)[1]
         assert ids[0, :len(dup)].tolist() == dup, "ties out of row order"
+    del scores
     for d in DOMAIN_DIMS:
         wide = F.normalize(torch.from_numpy(rng.normal(
             size=(20_000, d)).astype(np.float32)).cuda(), dim=-1)
@@ -4765,6 +4783,7 @@ def phase_domains(tc, seed: int, card: str) -> dict:
                                               STORE_ROWS, True)
             row["b16_k100"] = domain_topk(tc, q, mirror, 100, STORE_ROWS,
                                           False)
+            assert_select_exact(tc, tc.cosine_scores(q, mirror), 100)
         take_counts(tc, timed)
         row["search_k100"] = st.search(q.cpu().numpy(), 100)
         take_counts(tc, searched)
@@ -4776,7 +4795,8 @@ def phase_domains(tc, seed: int, card: str) -> dict:
     res["kernel1_timing_calls"] = timed
     res["store_search_launches"] = searched
     assert timed["plain"] == 0 and searched["plain"] == 0, (timed, searched)
-    assert searched["score_dense"] >= 3, searched
+    assert searched["score_dense"] >= 3 and searched["select"] >= 3, \
+        searched
     del store
     # after the read: each store's search(k=100) against a CPU store's
     for name, row in res["mirror"].items():
@@ -5248,6 +5268,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     launches = main_path["launches"]
     stages, lib = kern["stages"], kern["library"]
     dense = kern["times"]["dense_b16"]
+    tile, sel = stages["score_topk_b16_k5"], stages["select_b16_k100"]
     store_bytes = STORE_ROWS * DIM * 4
     score_ops = 2.0 * 16 * STORE_ROWS * DIM
     t, nv, b32 = 2056, 8, flash["b32_T2056"]
@@ -5263,7 +5284,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     mesh_topk = {key: (mesh["store"]["launches"][key]
                        + mesh["retrieval"]["launches"][key]
                        + sum(c[key] for c in gloo["store_launches"]))
-                 for key in ("score_topk", "merge")}
+                 for key in ("score_topk", "select")}
     mesh_flash = (mesh["chat"]["launches"]["flash"]
                   + sum(c["flash"] for c in gloo["chat_launches"]))
     # phase 23's: the streams and servers under the rank-0 leader, NCCL
@@ -5273,7 +5294,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
     # search(k=100) and the retrieval with rerank_pool 100; the 4K caption
     dom1 = {key: (domains["store_search_launches"][key]
                   + domains["retrieval_rerank_pool_100"]["launches"][key])
-            for key in ("score_topk", "merge", "score_dense")}
+            for key in ("score_topk", "select", "score_dense")}
     dom2 = domains["vlm_4k"]["launches"]["preprocess"]
     big_k = domains["large_k"]["b16_k1000"]
     bf16 = domains["mirror"]["bfloat16"]
@@ -5369,8 +5390,8 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "timed": "B=5 x 12 heads, N=257, hd=64, bf16 (device time, CUDA "
                   "graph)"}]
     return {"kernels": [
-        {"name": "cosine_score_tile (top-k mode)", "route": "cuda",
-         "source": src, "replaces": replaces,
+        {"name": "cosine_score_tile (top-k mode, merge folded)",
+         "route": "cuda", "source": src, "replaces": replaces,
          "launches": (launches["score_topk"]
                       + sweep["topk_launches"]["score_topk"]
                       + mesh_topk["score_topk"] + led["score_topk"]
@@ -5385,40 +5406,42 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "sweep_epoch_launches": sweep["topk_launches"]["score_topk"],
          "mesh_launches": mesh_topk["score_topk"],
          "leader_launches": led["score_topk"],
-         "max_abs_err": stages["score_topk_b16_k5"]["max_abs_err"],
-         "ms": stages["score_topk_b16_k5"]["kernel_ms"],
-         "plain_ms": stages["score_topk_b16_k5"]["plain_ms"],
-         "library_ms": lib["score_topk_b16_k5"],
-         **bound(store_bytes + kern["partial_bytes"], score_ops, F32_FLOPS),
+         "max_abs_err": tile["max_abs_err"],
+         "partial_max_abs_err": tile["partial_max_abs_err"],
+         "ms": tile["kernel_ms"], "device_ms": tile["device_ms"],
+         "plain_ms": tile["plain_ms"],
+         "library_ms": stages["library_topk_b16_k5"],
+         "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
          "topk_device_ms": {key: kern["times"][key]["device_ms"]
                             for key in ("topk_b1_k5", "topk_b16_k5")},
          "stream_memory": {"timed": "cosine_topk, B=1, k=3, 300 of 1024 "
                                     "rows x 512 f32 (a stream's memory)",
                            "launches": streams["counts"]["cosine_score_topk"],
                            **sk["cosine"]},
-         "timed": "per-segment top-5 partials, B=16, 200000x512 f32; "
-                  "topk_device_ms: cosine_topk (tile pass + merge) from "
-                  "CUDA-graph replay"},
-        {"name": "cosine_topk_merge", "route": "cuda", "source": src,
+         "timed": "top-5, B=16, 200000x512 f32, one launch (tile pass and "
+                  "the last block's merge); device_ms from CUDA-graph "
+                  "replay"},
+        {"name": "cosine_select", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/topk_select.cu",
          "replaces": replaces,
-         "launches": (launches["merge"] + sweep["topk_launches"]["merge"]
-                      + mesh_topk["merge"] + led["merge"] + dom1["merge"]),
-         "sweep_epoch_launches": sweep["topk_launches"]["merge"],
-         "mesh_launches": mesh_topk["merge"],
-         "leader_launches": led["merge"],
-         "max_abs_err": stages["merge_b16_k5"]["max_abs_err"],
-         "ms": stages["merge_b16_k5"]["kernel_ms"],
-         "plain_ms": stages["merge_b16_k5"]["plain_ms"],
-         "library_ms": lib["merge_b16_k5"],
-         **bound(kern["partial_bytes"] + 16 * 5 * 8, 0.0, F32_FLOPS),
-         "domain_launches": dom1["merge"],
-         "timed": "merge of the segments' top-5 partials, B=16"},
+         "replaces_in_jax": "vidgraph_tpu/ops/topk_cosine.py:132 "
+                            "(_masked_topk's lax.top_k)",
+         "launches": (launches["select"] + sweep["topk_launches"]["select"]
+                      + mesh_topk["select"] + led["select"] + dom1["select"]),
+         "domain_launches": dom1["select"],
+         "max_abs_err": sel["max_abs_err"], "ms": sel["kernel_ms"],
+         "device_ms": sel["device_ms"], "plain_ms": sel["plain_ms"],
+         "library_ms": sel["library_ms"], "bound_ms": sel["bound_ms"],
+         "bound_by": sel["bound_by"], "k1000": stages["select_b16_k1000"],
+         "timed": "top-100 of the dense scores [16, 199937], bit-equal to "
+                  "select_ref (the stable sort); device_ms from CUDA-graph "
+                  "replay; library torch.topk"},
         {"name": "cosine_score_tile (dense mode)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": launches["score_dense"] + dom1["score_dense"],
          "domain_launches": dom1["score_dense"],
          "large_k": {"timed": "top-1000, B=16, 200000x512 f32: the dense "
-                              "scores and a stable sort", **big_k},
+                              "scores and the selection", **big_k},
          "max_abs_err": kern["score_err"], "ms": dense["kernel_ms"],
          "plain_ms": dense["plain_ms"], "library_ms": lib["dense_b16"],
          "device_ms": dense["device_ms"],

@@ -18,10 +18,16 @@ pairs), each in a fresh process that imports that tree's
 named by ``--jobs`` (the first four by default):
 
 * ``cosine``: phase 2's top-5 of the 200,000 x 512 float32 store at B 1
-  and 16 and its dense scores at B 16, each held to the plain version
+  and 16 and its dense scores at B 16, top-100 and top-1000 at B 1 and 16
+  on that store in float32 and bfloat16, and phase 17's top-3 of a
+  stream's memory (300 of 1,024 rows), each held to the plain version
   (``TOL``): CUDA-event medians of a call and device times from CUDA-graph
   replay (``graph_ms``), with the library calls (``torch.topk`` over masked
-  ``F.normalize(q) @ S.T``, and that product alone) beside them;
+  ``F.normalize(q) @ S.T``, and that product alone) beside them; and the
+  host's microseconds a search (200 calls enqueued on the small store),
+  with a new row count each call (a new tensor map), and the host calls
+  that the top-k path once made a search (the SM count, the launch's
+  query limit, the merge's launch);
 * ``flash_fwd``: the forward at phase 6's serving shapes (B 1, 8, 32 x T
   2056 x 8 heads x 64, and 1 x 2056 x 16 x 128; SDPA beside) and with its
   log-sum-exp at phase 14's three training shapes, each held to
@@ -89,12 +95,30 @@ def load_smoke():
     return smoke
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls enqueued
+    without a synchronisation (the device's work is short beside it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def cosine_job(smoke) -> dict:
-    """Phase 2's timed calls at 200,000 x 512, each checked first."""
+    """Phase 2's timed calls at 200,000 x 512, the selection's k at float32
+    and bfloat16, phase 17's stream memory, each checked first; the host
+    time of a search."""
     import numpy as np
     import torch
 
     from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    from vidgraph_tpu_torch.ops import _build
     from vidgraph_tpu_torch.ops import topk_cosine as tc
 
     rng = np.random.default_rng(0)
@@ -106,17 +130,19 @@ def cosine_job(smoke) -> dict:
     count = smoke.STORE_COUNT
     past = torch.arange(smoke.STORE_ROWS, device="cuda") >= count
     rows = {}
-    for b in (1, 16):
-        q = queries[:b]
-        err = smoke.check_topk(tc, q, store, 5, count)
-        rows[f"topk_b{b}_k5"] = {
-            "max_abs_err": err,
-            "kernel_ms": cuda_ms(lambda: tc.cosine_topk(q, store, 5,
-                                                        count=count)),
-            "device_ms": graph_ms(lambda: tc.cosine_topk(q, store, 5,
-                                                         count=count)),
+
+    def topk_row(q, st, k, n_count, mask):
+        return {
+            "max_abs_err": smoke.check_topk(tc, q, st, k, n_count),
+            "kernel_ms": cuda_ms(lambda: tc.cosine_topk(q, st, k,
+                                                        count=n_count)),
+            "device_ms": graph_ms(lambda: tc.cosine_topk(q, st, k,
+                                                         count=n_count)),
             "library_ms": cuda_ms(
-                lambda: smoke.library_topk(q, store, past, 5))}
+                lambda: smoke.library_topk(q, st, mask, k))}
+
+    for b in (1, 16):
+        rows[f"topk_b{b}_k5"] = topk_row(queries[:b], store, 5, count, past)
     dense = tc.cosine_scores(queries, store, count=count)
     torch.cuda.synchronize()
     err = float((dense - tc.cosine_scores_ref(queries, store, count=count))
@@ -130,6 +156,37 @@ def cosine_job(smoke) -> dict:
                                                        count=count)),
         "library_ms": cuda_ms(
             lambda: smoke.library_scores(queries, store, past))}
+    del dense
+    for name, st in (("f32", store), ("bf16", store.to(torch.bfloat16))):
+        for k in (100, 1000):
+            for b in (1, 16):
+                rows[f"topk_{name}_b{b}_k{k}"] = topk_row(
+                    queries[:b], st, k, count, past)
+    # phase 17's stream memory: top-3 of the first 300 of 1,024 rows
+    small = store[:1024].contiguous()
+    small_past = torch.arange(1024, device="cuda") >= 300
+    rows["stream_b1_k3_rows300"] = topk_row(queries[:1], small, 3, 300,
+                                            small_past)
+    q1 = queries[:1]
+    lib = _build.library()
+    counts = iter(range(10 ** 6))
+    hosts = {
+        "topk_b1_k5": host_us(lambda: tc.cosine_topk(q1, small, 5,
+                                                     count=1000)),
+        "topk_b16_k5": host_us(lambda: tc.cosine_topk(queries, small, 5,
+                                                      count=1000)),
+        "topk_b1_k5_new_count": host_us(lambda: tc.cosine_topk(
+            q1, small, 5, count=900 + next(counts) % 100)),
+        "topk_b16_k100": host_us(lambda: tc.cosine_topk(queries, small, 100,
+                                                        count=1000)),
+        "sm_count": host_us(lambda: torch.cuda.get_device_properties(
+            store.device).multi_processor_count),
+        "queries_per_launch": host_us(
+            lambda: lib.cosine_queries_per_launch(smoke.DIM, 5, 0))}
+    if hasattr(tc, "topk_merge"):         # a tree with the merge kernel
+        pv, pi = tc.topk_partials(q1, small, 5, 1000)
+        hosts["merge_launch"] = host_us(lambda: tc.topk_merge(pv, pi, 5))
+    rows["host_us"] = hosts
     return rows
 
 

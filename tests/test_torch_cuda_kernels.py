@@ -1,12 +1,14 @@
-"""The hand-written CUDA cosine top-k kernel against its plain PyTorch
-version, on the card.  Marked ``cuda``: they skip on a host without one.
-Run them there with ``python -m pytest tests/test_torch_cuda_kernels.py``.
+"""The hand-written CUDA cosine top-k kernels (``cosine_score_tile`` and
+``cosine_select``) against their plain PyTorch versions, on the card.
+Marked ``cuda``: they skip on a host without one.  Run them there with
+``python -m pytest tests/test_torch_cuda_kernels.py``.
 
 Tolerances (every store type: the plain version upcasts a 16-bit store to
 float32 as the kernel does): scores within 1e-5 (float32 sums taken in
 another order than cuBLAS takes them); indices equal wherever the
 reference scores on either side are more than 1e-5 apart, since a
-near-tie may swap.
+near-tie may swap.  The selection above the lists (k > 64) is held bit
+for bit to ``select_ref`` on the same dense scores.
 """
 import numpy as np
 import pytest
@@ -57,7 +59,7 @@ def _assert_topk(q, store, k, count):
     assert not (vals[:, :kk] > -1e29)[idx[:, :kk] >= valid].any()
 
 
-@pytest.mark.parametrize("b", [1, 16, 30, 40])
+@pytest.mark.parametrize("b", [1, 16, 30, 33, 40])
 @pytest.mark.parametrize("k", [1, 5, 64])
 def test_topk_matches_plain_at_store_scale(dev, b, k):
     store = _store(200_000, 512, 0, dev)
@@ -154,11 +156,16 @@ def test_dense_scores_match_plain(dev, b):
 
 
 @pytest.mark.parametrize("b,n,k,count", [(16, 200_000, 5, 199_937),
+                                         (1, 200_000, 64, 200_000),
+                                         (33, 100_000, 5, 99_000),
                                          (40, 5000, 64, 100)])
 def test_each_stage_matches_its_plain_version(dev, b, n, k, count):
+    """One launch's tile pass (its lists, read from its scratch) against
+    ``topk_partials_ref``, and its last block's merge of those lists
+    against ``topk_merge_ref`` on them, bit for bit."""
     store = _store(n, 512, 6, dev)
     q = _queries(b, 512, 6, dev)
-    pv, pi = tc.topk_partials(q, store, k, count)
+    vals, idx, pv, pi = tc.topk_lists(q, store, k, count)
     torch.cuda.synchronize()
     tile = tc.segment_rows(n, dev)
     rv, ri = tc.topk_partials_ref(q, store, k, count, tile)
@@ -167,19 +174,128 @@ def test_each_stage_matches_its_plain_version(dev, b, n, k, count):
     finite = ~rv.isinf()
     np.testing.assert_allclose(pv[finite].cpu().numpy(),
                                rv[finite].cpu().numpy(), atol=TOL, rtol=0)
-    vals, idx = tc.topk_merge(pv, pi, k)
     mv, mi = tc.topk_merge_ref(pv, pi, k)
     np.testing.assert_array_equal(vals.cpu().numpy(), mv.cpu().numpy())
     np.testing.assert_array_equal(idx.cpu().numpy(), mi.cpu().numpy())
 
 
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("k", [5, 32, 33, 64])
+def test_merge_when_many_entries_pass(dev, b, k):
+    """Scores rising along the store: the best lists' entries all beat
+    the k-th best head, so past 1,024 entries pass the last block's
+    threshold at k 64 and it merges in rounds; the result is the plain
+    version's in every case."""
+    n = 100_000
+    a = np.linspace(-0.9, 0.9, n, dtype=np.float64)
+    rows = np.zeros((n, 512), np.float32)
+    rows[:, 0] = a
+    rows[:, 1] = np.sqrt(1 - a * a)
+    store = torch.from_numpy(rows).to(dev)
+    q = torch.zeros((b, 512), device=dev)
+    q[:, 0] = 1.0
+    q[:, 1] = torch.linspace(0.0, 0.01, b, device=dev)
+    vals, idx, pv, pi = tc.topk_lists(q, store, k, n)
+    torch.cuda.synchronize()
+    mv, mi = tc.topk_merge_ref(pv, pi, k)
+    assert torch.equal(vals, mv) and torch.equal(idx, mi)
+    _assert_topk(q, store, k, n)
+
+
 def test_launch_counts_and_no_plain_calls(dev):
+    """A search of k <= 64 is one launch up to a launch's 32 queries (two
+    at 33); k > 64 is the dense pass and one selection."""
     store = _store(4096, 512, 4, dev)
     tc.reset_counts()
     tc.cosine_topk(_queries(2, 512, 4, dev), store, 5)
     tc.cosine_scores(_queries(2, 512, 4, dev), store)
-    assert tc.LAUNCHES == {"score_topk": 1, "score_dense": 1, "merge": 1}
+    assert tc.LAUNCHES == {"score_topk": 1, "score_dense": 1, "select": 0}
     assert tc.REF_CALLS == 0
+    for b, launches in ((1, 1), (16, 1), (32, 1), (33, 2)):
+        tc.reset_counts()
+        tc.cosine_topk(_queries(b, 512, b, dev), store, 64)
+        assert tc.LAUNCHES == {"score_topk": launches, "score_dense": 0,
+                               "select": 0}, (b, tc.LAUNCHES)
+    tc.reset_counts()
+    tc.cosine_topk(_queries(16, 512, 4, dev), store, 100)
+    assert tc.LAUNCHES == {"score_topk": 0, "score_dense": 1, "select": 1}
+    assert tc.REF_CALLS == 0
+
+
+def _reference_topk(q, store, k, count):
+    return tc.cosine_topk_ref(q, store, k + 1, count=count)
+
+
+def _assert_rows(vals, idx, rv, ri, k):
+    """``_assert_topk``'s checks on results already computed."""
+    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+    rv, ri = rv.cpu().numpy(), ri.cpu().numpy()
+    np.testing.assert_allclose(vals, rv[:, :k], atol=TOL, rtol=0)
+    padded = np.concatenate([np.full((rv.shape[0], 1), np.inf), rv,
+                             np.full((rv.shape[0], 1), -np.inf)], axis=1)
+    for j in range(k):
+        apart = ((padded[:, j] - padded[:, j + 1] > TOL)
+                 & (padded[:, j + 1] - padded[:, j + 2] > TOL))
+        np.testing.assert_array_equal(idx[apart, j], ri[apart, j])
+
+
+def test_counter_after_back_to_back_searches(dev):
+    """1,000 searches of one query each, back to back on one stream: each
+    launch's last block merges and leaves the counter at zero for the
+    next, so every result is its own query's."""
+    store = _store(20_000, 512, 21, dev)
+    q = _queries(1000, 512, 21, dev)
+    got = [tc.cosine_topk(q[i:i + 1], store, 5, count=19_500)
+           for i in range(1000)]
+    torch.cuda.synchronize()
+    rv, ri = _reference_topk(q, store, 5, 19_500)
+    _assert_rows(torch.cat([v for v, _ in got]),
+                 torch.cat([i for _, i in got]), rv, ri, 5)
+
+
+def test_counter_under_cuda_graph_replay(dev):
+    """Searches captured into a CUDA graph: every replay, on new queries
+    copied into the captured input, gives those queries' top-k."""
+    store = _store(50_000, 512, 22, dev)
+    q_in = _queries(16, 512, 22, dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tc.cosine_topk(q_in, store, 5, count=49_000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tc.cosine_topk(q_in[:b], store, 5, count=49_000)
+                for b in (1, 16, 3)]
+    for r in range(8):
+        q_in.copy_(_queries(16, 512, 100 + r, dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        for (vals, idx), b in zip(outs, (1, 16, 3)):
+            rv, ri = _reference_topk(q_in[:b], store, 5, 49_000)
+            _assert_rows(vals, idx, rv, ri, 5)
+
+
+def test_counters_of_two_streams(dev):
+    """Searches on two streams at once: each stream has a counter of its
+    own, so neither launch's last block merges the other's lists."""
+    store = _store(100_000, 512, 23, dev)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    qs = [_queries(16, 512, 23 + i, dev) for i in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(tc.cosine_topk(qs[i], store, 5, count=99_000))
+    torch.cuda.synchronize()
+    assert len({tc._counter_slot(dev.index or 0, st.cuda_stream)
+                for st in streams}) == 2
+    for i in range(2):
+        rv, ri = _reference_topk(qs[i], store, 5, 99_000)
+        for vals, idx in outs[i]:
+            _assert_rows(vals, idx, rv, ri, 5)
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
@@ -195,13 +311,19 @@ def test_kernel_rejects_what_it_cannot_take(dev):
         tc.cosine_topk(q.cpu(), store, 5)
     with pytest.raises(ValueError):
         tc.topk_partials(q, store, tc.LIST_K + 1, 100)
+    scores = tc.cosine_scores(q, store)
+    for k in (0, 101):
+        with pytest.raises(ValueError):
+            tc.select_topk(scores, k)
+    with pytest.raises(ValueError):
+        tc.select_topk(scores.double(), 5)
 
 
 @pytest.mark.parametrize("k", [65, 100, 256, 1000])
 @pytest.mark.parametrize("b", [1, 16])
 def test_k_above_the_lists_matches_plain(dev, b, k):
-    """k past the kernel's lists (65, once refused): the dense scores and a
-    stable sort, with ties placed across tiles."""
+    """k past the kernel's lists (65, once refused): the dense scores and
+    the selection kernel, with ties placed across tiles."""
     store = _store(50_000, 512, k, dev)
     dup = [3, 255, 256, 4000, 30_000, 49_999]
     store[dup] = store[7].clone()
@@ -209,7 +331,7 @@ def test_k_above_the_lists_matches_plain(dev, b, k):
     q[0] = store[7] * 2.0
     tc.reset_counts()
     _assert_topk(q, store, k, 49_999)
-    assert tc.LAUNCHES["score_dense"] == 1 and tc.LAUNCHES["merge"] == 0
+    assert tc.LAUNCHES == {"score_topk": 0, "score_dense": 1, "select": 1}
     vals, idx = tc.cosine_topk(q, store, k, count=50_000)
     torch.cuda.synchronize()
     assert idx[0, :7].tolist() == sorted([7, *dup])
@@ -247,3 +369,60 @@ def test_16_bit_stores_match_plain(dev, dtype, d, k):
         rows[:, :d] = store
         store = rows[:, :d]
     _assert_topk(_queries(16, d, d, dev), store, k, 19_000)
+
+
+def _assert_select_exact(scores, k):
+    got = tc.select_topk(scores, k)
+    torch.cuda.synchronize()
+    ref = tc.select_ref(scores, k)
+    assert got[0].shape == (scores.shape[0], k) and got[1].dtype == torch.int32
+    assert torch.equal(got[0], ref[0]), "selected scores differ"
+    assert torch.equal(got[1], ref[1]), "selected columns differ"
+
+
+@pytest.mark.parametrize("k", [65, 100, 256, 1000, 2000, 20_000, 50_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_selection_is_the_stable_sort(dev, k, dtype):
+    """The selection against the stable descending sort of the same dense
+    scores, bit for bit, at B 1 and 16: k up to a thread's best (1000),
+    the radix select (2000), a scratch sort (20,000) and k = n; a store
+    of each type, rows copied across tiles so that scores tie."""
+    store = _store(50_000, 512, k, dev)
+    store[[3, 255, 256, 4000, 30_000, 49_999]] = store[7].clone()
+    store = store.to(dtype)
+    q = _queries(16, 512, k, dev)
+    q[0] = store[7].float()
+    scores = tc.cosine_scores(q, store, count=49_990)
+    for b in (1, 16):
+        _assert_select_exact(scores[:b], k)
+
+
+@pytest.mark.parametrize("k", [65, 1000, 3000])
+@pytest.mark.parametrize("n", [70, 1023, 4099, 200_000])
+def test_selection_on_equal_rows(dev, n, k):
+    """Every score equal (all rows the same), and -0.0 beside +0.0: the
+    first k columns in order, for rows that start off 16 bytes (n odd)."""
+    k = min(k, n)
+    _assert_select_exact(torch.full((3, n), 0.25, device=dev), k)
+    zeros = torch.zeros((3, n), device=dev)
+    zeros[:, ::3] = -0.0
+    _assert_select_exact(zeros, k)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_selection_past_the_sampled_bound(dev, tied):
+    """High scores all in the columns of 100 of the kernel's 1,024
+    threads (columns 4t..4t+3 of each 4,096): the 200th best of the
+    threads' bests lets ~19,500 entries through, past shared memory, so
+    the radix select takes over; with the high scores equal the cut
+    falls inside a tie and the column's bits decide."""
+    n = 200_000
+    rng = np.random.default_rng(24)
+    scores = rng.uniform(-1, 0, size=(4, n)).astype(np.float32)
+    high = (np.arange(n) // 4) % 1024 < 100
+    scores[:, high] = 0.5 if tied else rng.uniform(
+        0.1, 1, size=(4, int(high.sum())))
+    scores = torch.from_numpy(scores).to(dev)
+    for k in (200, 1000):
+        _assert_select_exact(scores, k)

@@ -12,6 +12,7 @@ import os
 
 os.environ["VIDGRAPH_TORCH_DEVICE"] = "cpu"
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -72,6 +73,9 @@ def test_masked_scores_match_jax(count):
     (1, 300, 512, 1, 300),
     (7, 4096, 128, 64, 4000),    # the kernel's largest k
     (3, 70_000, 32, 10, 69_001),  # JAX two-stage top-k (>= 65,536 rows)
+    (3, 5000, 64, 65, 4900),     # past the lists: the selection kernel's k
+    (2, 20_000, 128, 100, 20_000),
+    (2, 70_000, 32, 1000, 69_001),
 ])
 def test_topk_matches_jax(b, n, d, k, count):
     q, s = _inputs(b, n, d, seed=n)
@@ -157,9 +161,58 @@ def test_cpu_tensors_take_the_plain_version():
     q, s = _inputs(2, 100, 16, seed=5)
     tc.reset_counts()
     tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), 5)
-    tc.cosine_scores(torch.from_numpy(q), torch.from_numpy(s))
-    assert tc.REF_CALLS == 2
-    assert tc.LAUNCHES == {"score_topk": 0, "score_dense": 0, "merge": 0}
+    tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), 70)
+    scores = tc.cosine_scores(torch.from_numpy(q), torch.from_numpy(s))
+    tc.select_topk(scores, 70)
+    assert tc.REF_CALLS == 4
+    assert tc.LAUNCHES == {"score_topk": 0, "score_dense": 0, "select": 0}
+
+
+def _tied_inputs(b, n, d, seed):
+    """A store of one-hot rows on a few columns: each score is one
+    product, so rows with the same hot column tie exactly in any order of
+    summation, in either framework."""
+    rng = np.random.default_rng(seed)
+    s = np.eye(d, dtype=np.float32)[rng.integers(0, 4, size=n)]
+    return rng.normal(size=(b, d)).astype(np.float32), s
+
+
+@pytest.mark.parametrize("n,k,count", [
+    (5000, 65, 5000), (5000, 100, 4000), (5000, 1000, 5000),
+    (300, 250, 200),              # k past the count: the masked rows tie
+    (70_000, 1000, 69_001),       # JAX two-stage top-k
+])
+def test_topk_with_exact_ties_matches_jax(n, k, count):
+    """Thousands of rows at each of four exact scores: indices equal to
+    JAX's everywhere, equal scores in ascending row order."""
+    q, s = _tied_inputs(3, n, 16, seed=k)
+    jv, ji = jtc.cosine_topk(jnp.asarray(q), jnp.asarray(s), k,
+                             use_pallas=False, valid_count=count)
+    vals, idx = tc.cosine_topk(torch.from_numpy(q), torch.from_numpy(s), k,
+                               count=count)
+    np.testing.assert_allclose(vals.numpy(), np.asarray(jv), atol=TOL,
+                               rtol=0)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("k", [65, 100, 1000, 3000])
+@pytest.mark.parametrize("tied", [False, True])
+def test_select_ref_matches_lax_top_k(k, tied):
+    """The selection's plain version against ``lax.top_k`` on the same
+    score matrix: values and indices equal, bit for bit (masked rows and
+    repeated scores included)."""
+    rng = np.random.default_rng(k)
+    scores = rng.normal(size=(4, 3000)).astype(np.float32)
+    if tied:
+        scores = np.round(scores * 4) / 4
+    scores[:, 2500:] = np.float32(-1e30)
+    jv, ji = jax.lax.top_k(jnp.asarray(scores), k)
+    vals, idx = tc.select_ref(torch.from_numpy(scores), k)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    got = tc.select_topk(torch.from_numpy(scores), k)
+    assert all(torch.equal(a, b) for a, b in zip(got, (vals, idx)))
 
 
 @pytest.mark.parametrize("k", [0, 65])

@@ -49,16 +49,29 @@
 // * top-k, for k up to kMaxK: at each tile's end the scores go to shared
 //   memory and one warp per query merges the candidates that beat its
 //   running k-th best into a sorted list of k kept for the whole segment.
-//   The partials are one list per segment [B, n_segments, k], sized by k;
-//   cosine_topk_merge merges them.  Above kMaxK the caller takes the dense
-//   scores and selects from them (ops/topk_cosine.py), as the JAX package
+//   Each block writes its segment's list [B, n_segments, k] to scratch
+//   and counts itself done on a counter in device memory; the grid's last
+//   block merges every list into the top k (merge_lists), so a search is
+//   one launch.  A separate merge kernel cost a second launch: 0.019-0.048
+//   ms of host time a search on the card named above.  The merge stages the
+//   lists by cp.async, takes tau, the k-th best of a pool of list heads
+//   (a bound on the k-th best entry), and ranks the few entries at or
+//   above it, all 128 threads at once, in rolled loops: it runs once a
+//   launch from a cold instruction cache, where a warp merging in k rounds
+//   (each a chain of dependent instructions) or unrolled code cost more
+//   than the work.  The counters are a zero-initialised array of this
+//   library, one slot for each stream the wrapper launches on: the last
+//   block sets its slot back to 0, so no launch ever clears it and a CUDA
+//   graph's replays find it at 0.  Above kMaxK the caller takes the dense
+//   scores and selects from them (csrc/topk_select.cu), as the JAX package
 //   leaves its top-k to lax.top_k outside the Pallas kernel.
 //
-// Left as later work: a merge folded into the grid, and lists for k above
-// kMaxK.  The entry points have a plain C interface and return
-// cudaGetLastError() so that a refused launch is reported to the caller; a
-// launch returns cudaErrorNotSupported where libcuda offers no tensor-map
-// encoder.
+// The entry points have a plain C interface and return cudaGetLastError()
+// so that a refused launch is reported to the caller; a launch returns
+// cudaErrorNotSupported where libcuda offers no tensor-map encoder.  The
+// tensor maps are cached by (address, geometry) and each instantiation
+// raises its shared-memory limit once a device, so a search's host work
+// is the launch.
 
 #include "tma.cuh"
 
@@ -67,6 +80,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <climits>
+#include <mutex>
+#include <unordered_map>
 
 namespace {
 
@@ -87,6 +105,13 @@ constexpr int kSmemLimit = 232448;       // opt-in shared memory on sm_90
 constexpr int kExtraBytes = 1024 + 8 + 8 * kMaxStages;
 constexpr float kMasked = -1e30f;
 constexpr int kNoIndex = 0x7fffffff;
+constexpr int kMaxSegments = 160;        // lists a merge takes: 5 a lane
+constexpr int kListsPerLane = kMaxSegments / 32;
+constexpr int kCounterSlots = 1024;      // streams with a completion counter
+
+// The completion counters, one a stream (the wrapper hands out the
+// slots); zero at load, and set back to zero by each launch's last block.
+__device__ unsigned int g_done[kCounterSlots];
 
 // the store's element types, by the code the wrapper passes
 enum StoreType { kF32 = 0, kBF16 = 1, kF16 = 2 };
@@ -213,20 +238,358 @@ __device__ void merge_tile(const float* sc, float* lv, int* li, int k,
   }
 }
 
+typedef unsigned long long Key;
+
+// A list entry as one key: its score's order-preserving bits (-0.0 as
+// +0.0) above its row's complement, so that a larger key comes first and
+// equal scores go to the lower row, as `better` orders the lists; 0 for an
+// empty slot (-inf at kNoIndex), below every entry.
+__device__ __forceinline__ Key list_key(float v, int i) {
+  if (i == kNoIndex) return 0;
+  uint32_t u = __float_as_uint(v);
+  if ((u << 1) == 0) u = 0;
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (Key)o << 32 | (uint32_t)~(uint32_t)i;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Starts copying n 4-byte words from src (global) to dst (shared), the
+// two equal modulo 16 bytes: 16-byte copies between 4-byte ones at the
+// ends.
+__device__ void stage_words(void* dst, const void* src, int n) {
+  uint32_t* d = static_cast<uint32_t*>(dst);
+  const uint32_t* g = static_cast<const uint32_t*>(src);
+  const int head =
+      min(n, (int)((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) >> 2);
+  const int chunks = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += kThreads) cp_async4(d + i, g + i);
+  for (int c = threadIdx.x; c < chunks; c += kThreads)
+    cp_async16(d + head + 4 * c, g + head + 4 * c);
+  for (int i = head + 4 * chunks + threadIdx.x; i < n; i += kThreads)
+    cp_async4(d + i, g + i);
+}
+
+// entries of a list that the merge stages in shared memory
+constexpr int kStaged = 8;
+
+// An entry past the staged ones, from the lists in global memory; out of
+// line, so that the merge's loops stay small.
+__device__ __noinline__ Key far_key(const float* pv, const int* pi,
+                                    size_t e) {
+  return list_key(__ldcg(pv + e), __ldcg(pi + e));
+}
+
+// A query's lists for the merge: the first `staged` entries of each in
+// shared memory, sv / si [n_seg][staged], the rest in global memory, pv /
+// pi [n_seg][k].
+struct Lists {
+  const float* sv;
+  const int* si;
+  const float* pv;
+  const int* pi;
+  int n_seg, k, staged;
+  // query q's lists, where this holds a group's from query 0 on
+  __device__ __forceinline__ Lists query(int q) const {
+    return Lists{sv + q * n_seg * staged, si + q * n_seg * staged,
+                 pv + (size_t)q * n_seg * k, pi + (size_t)q * n_seg * k,
+                 n_seg, k, staged};
+  }
+  // entry c of list t as a key; 0 past the list
+  __device__ __forceinline__ Key at(int t, int c) const {
+    if (c >= k) return 0;
+    if (c < staged) return list_key(sv[t * staged + c], si[t * staged + c]);
+    return far_key(pv, pi, (size_t)t * k + c);
+  }
+};
+
+// result r of a query: the entry of `key`, or -inf at kNoIndex for 0
+__device__ __forceinline__ void put(Key key, float* vals, int* idx, int r) {
+  const uint32_t o = static_cast<uint32_t>(key >> 32);
+  vals[r] = key == 0 ? -CUDART_INF_F
+                     : __uint_as_float((o & 0x80000000u) ? o & 0x7fffffffu
+                                                         : ~o);
+  idx[r] = key == 0 ? kNoIndex : (int)~static_cast<uint32_t>(key);
+}
+
+constexpr int kPool = kListsPerLane * 32;  // every head of a query
+
+// keys of a query's pool of heads: the best of each of 32 groups of lists
+// where k <= 32, else every head
+__host__ __device__ constexpr int pool_keys(int k) {
+  return k <= 32 ? 32 : kPool;
+}
+
+// lists of a query whose head reaches tau, at most: k groups' five, or k
+__host__ __device__ constexpr int list_room(int k) {
+  return k <= 32 ? 5 * k : k;
+}
+
+// candidates a query keeps room for
+__host__ __device__ constexpr int cand_room(int k) {
+  return 4 * k > 64 ? 4 * k : 64;
+}
+
+// Bytes of shared memory a query of the merge takes: its staged lists,
+// pool, tau, counts and candidates.
+__host__ __device__ constexpr int merge_query_bytes(int n_seg, int k) {
+  return n_seg * (k < kStaged ? k : kStaged) * 8 + pool_keys(k) * 8 + 16 +
+         cand_room(k) * 8 + list_room(k) * 4;
+}
+
+// One warp, one query: its top k in k rounds, each taking the warp's
+// largest head; the lane that holds it moves that list on.  The fallback
+// of merge_group for a query past its candidates' room.
+__device__ __noinline__ void merge_rounds(const Lists L, float* vals,
+                                          int* idx) {
+  const int lane = threadIdx.x & 31;
+  Key hk[kListsPerLane];
+  int cur[kListsPerLane];
+#pragma unroll
+  for (int j = 0; j < kListsPerLane; ++j) {
+    cur[j] = 0;
+    hk[j] = lane + 32 * j < L.n_seg ? L.at(lane + 32 * j, 0) : 0;
+  }
+  for (int r = 0; r < L.k; ++r) {
+    Key best = hk[0];
+#pragma unroll
+    for (int j = 1; j < kListsPerLane; ++j) best = max(best, hk[j]);
+    Key top = best;
+    for (int o = 16; o > 0; o >>= 1)
+      top = max(top, __shfl_xor_sync(0xffffffffu, top, o));
+    if (lane == 0) put(top, vals, idx, r);
+    // a real key is one entry's: one lane holds it
+    if (top != 0 && best == top) {
+#pragma unroll
+      for (int j = 0; j < kListsPerLane; ++j)
+        if (hk[j] == top) hk[j] = L.at(lane + 32 * j, ++cur[j]);
+    }
+  }
+}
+
+// The top k of each of gq queries from their staged lists, by the whole
+// block in steps:
+// 1. a pool of each query's heads: the best of lists g, g + 32, ... for
+//    each g < 32 where k <= 32, else every head;
+// 2. tau, the pool's k-th largest key (1 where it holds fewer than k), is
+//    at or below the query's k-th largest entry, so its top k are among
+//    the entries at or above tau: a prefix of each list whose head is;
+// 3. the lists whose head reaches tau, then (a thread a list) their
+//    passing prefixes into the query's candidates;
+// 4. each candidate's rank among them; rank r < k is the result's r-th.
+// A query whose candidates overflow `room` is merged in rounds instead.
+// pool [gq][pool keys], tau [gq], cnt and off [gq + 1], cand [gq][room]
+// and the passing lists `pass` [gq][list_room] are shared memory.  The
+// merge runs once a launch, from a cold instruction cache, so its loops
+// are rolled: unrolled, the code grew to cost more than the work.
+__device__ __noinline__ void merge_group(const Lists lists, int gq,
+                                         float* vals, int* idx, Key* pool,
+                                         Key* tau, int* cnt, int* off,
+                                         Key* cand, int room, int* pass) {
+  const int k = lists.k, n_seg = lists.n_seg;
+  const int pp = pool_keys(k);
+  // 1
+  for (int e = threadIdx.x; e < gq * 32; e += kThreads) {
+    const int q = e >> 5, g = e & 31;
+    const Lists L = lists.query(q);
+    Key h[kListsPerLane];
+#pragma unroll
+    for (int j = 0; j < kListsPerLane; ++j)
+      h[j] = g + 32 * j < n_seg ? L.at(g + 32 * j, 0) : 0;
+    if (pp == kPool) {
+#pragma unroll
+      for (int j = 0; j < kListsPerLane; ++j) pool[q * pp + 32 * j + g] = h[j];
+    } else {
+      Key a = 0;
+#pragma unroll
+      for (int j = 0; j < kListsPerLane; ++j) a = max(a, h[j]);
+      pool[q * pp + g] = a;
+    }
+  }
+  for (int q = threadIdx.x; q <= gq; q += kThreads) {
+    if (q < gq) tau[q] = 1;
+    cnt[q] = 0;                        // cnt[gq]: the passing lists
+  }
+  __syncthreads();
+  // 2: eight keys of a query's pool a thread, one pass over that pool
+  for (int c = threadIdx.x; c < gq * pp / 8; c += kThreads) {
+    const int q = c * 8 / pp;
+    const Key* pq = pool + q * pp;
+    Key x[8];
+    int r[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = pool[c * 8 + i];
+      r[i] = 0;
+    }
+#pragma unroll 2
+    for (int u = 0; u < pp; ++u) {
+      const Key y = pq[u];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[i] += y > x[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (x[i] != 0 && r[i] == k - 1) tau[q] = x[i];
+  }
+  __syncthreads();
+  // 3: the passing lists, a warp's at once; then a thread a list (a
+  // list's prefix costs a few dependent reads: in one thread of a warp
+  // the rest would wait for it)
+  const int lane = threadIdx.x & 31;
+  for (int e0 = 0; e0 < gq * n_seg; e0 += kThreads) {
+    const int e = e0 + threadIdx.x;
+    const int q = e / n_seg;
+    const bool ok = e < gq * n_seg &&
+                    lists.query(q).at(e - q * n_seg, 0) >= tau[q];
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    int base = 0;
+    if (lane == 0 && m) base = atomicAdd(&cnt[gq], __popc(m));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (ok) pass[base + __popc(m & ((1u << lane) - 1))] = e;
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < cnt[gq]; p += kThreads) {
+    const int e = pass[p], q = e / n_seg, t = e - q * n_seg;
+    const Lists L = lists.query(q);
+    const Key floor = tau[q];
+    int len = 0;
+#pragma unroll
+    for (int c = 0; c < kStaged; ++c)
+      len += c < L.staged && L.at(t, c) >= floor;
+#pragma unroll 1
+    while (len >= L.staged && len < k && L.at(t, len) >= floor) ++len;
+    const int at = atomicAdd(&cnt[q], len);
+#pragma unroll 1
+    for (int c = 0; c < len && at + c < room; ++c)
+      cand[q * room + at + c] = L.at(t, c);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {                     // offsets of the kept ones
+    int base = 0;
+    for (int q0 = 0; q0 < gq; q0 += 32) {
+      const int q = q0 + threadIdx.x;
+      const int n = q < gq && cnt[q] <= room ? cnt[q] : 0;
+      int incl = n;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (threadIdx.x >= o) incl += y;
+      }
+      if (q < gq) off[q] = base + incl - n;
+      base += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (threadIdx.x == 0) off[gq] = base;
+  }
+  const int over =
+      __syncthreads_or(threadIdx.x < gq && cnt[threadIdx.x] > room);
+  // 4
+  for (int e = threadIdx.x; e < off[gq]; e += kThreads) {
+    int q = 0;
+    while (q + 1 < gq && off[q + 1] <= e) ++q;
+    const Key* cq = cand + q * room;
+    const int n = cnt[q];
+    const Key x = cq[e - off[q]];
+    int r = 0;
+#pragma unroll 4
+    for (int u = 0; u < n; ++u) r += cq[u] > x;
+    if (r < k) put(x, vals + (size_t)q * k, idx + (size_t)q * k, r);
+  }
+  for (int e = threadIdx.x; e < gq * k; e += kThreads) {
+    const int q = e / k, r = e % k;
+    if (cnt[q] <= room && r >= cnt[q])
+      put(0, vals + (size_t)q * k, idx + (size_t)q * k, r);
+  }
+  // queries past their room (rare): a warp each, in rounds
+  if (!over) return;
+  const int warp = threadIdx.x >> 5;
+  int seen = 0;
+  for (int q = 0; q < gq; ++q)
+    if (cnt[q] > room && seen++ % kWarps == warp)
+      merge_rounds(lists.query(q), vals + (size_t)q * k,
+                   idx + (size_t)q * k);
+}
+
+// Run by the grid's last block once every block's lists are in part_vals
+// / part_idx [bq][n_seg][k]: each query's top k into vals / idx [bq][k].
+// The first kStaged entries of every list come from L2 (other blocks
+// wrote them) into this block's shared memory (`area` bytes) by cp.async
+// copies, all in flight at once, as many queries at a time as fit; then
+// merge_group.  Kept out of line, so that the score loop's registers do
+// not depend on it.
+__device__ __noinline__ void merge_lists(const float* part_vals,
+                                         const int* part_idx, int bq,
+                                         int n_seg, int k, float* vals,
+                                         int* idx, uint8_t* smem, int area) {
+  const int staged = min(k, kStaged);
+  const int per_q = n_seg * staged;
+  const int room = cand_room(k);
+  const int group = min(bq, (area - 256) / merge_query_bytes(n_seg, k));
+  Key* pool = reinterpret_cast<Key*>(smem);
+  Key* tau = pool + group * pool_keys(k);
+  Key* cand = tau + group;
+  int* cnt = reinterpret_cast<int*>(cand + group * room);
+  int* off = cnt + group + 1;
+  int* pass = off + group + 1;
+  uint8_t* lists = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(pass + group * list_room(k)) + 15) &
+      ~uintptr_t(15));
+  const int si_at = (group * per_q * 4 + 16 + 15) & ~15;
+  for (int g0 = 0; g0 < bq; g0 += group) {
+    const int gq = min(group, bq - g0);
+    const float* pv = part_vals + (size_t)g0 * n_seg * k;
+    const int* pi = part_idx + (size_t)g0 * n_seg * k;
+    // the lists at the same offset modulo 16 bytes as in global memory
+    float* sv = reinterpret_cast<float*>(
+        lists + (reinterpret_cast<uintptr_t>(pv) & 15));
+    int* si = reinterpret_cast<int*>(
+        lists + si_at + (reinterpret_cast<uintptr_t>(pi) & 15));
+    __syncthreads();                     // the last group's merge is done
+    if (staged == k) {                   // whole lists: contiguous
+      stage_words(sv, pv, gq * per_q);
+      stage_words(si, pi, gq * per_q);
+    } else {
+      for (int e = threadIdx.x; e < gq * per_q; e += kThreads) {
+        const size_t from = (size_t)(e / staged) * k + e % staged;
+        cp_async4(sv + e, pv + from);
+        cp_async4(si + e, pi + from);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    merge_group(Lists{sv, si, pv, pi, n_seg, k, staged}, gq,
+                vals + (size_t)g0 * k, idx + (size_t)g0 * k, pool, tau, cnt,
+                off, cand, room, pass);
+  }
+}
+
 // Shared memory: the ring [stages][kTileRows][128 bytes] (1024-byte
 // aligned, swizzled), q^ [QB][dpad] float32, the tile's scores
 // [QB][kTileRows], the lists' values and indices [QB][k], one mbarrier a
-// stage.  k == 0: dense mode, out_scores [bq, n_rows].  k > 0: partials
-// part_vals / part_idx [bq, gridDim.x, k], one sorted list per segment of
-// tiles_per_block tiles.  vec4: the query's rows are whole float4s.
+// stage.  k == 0: dense mode, out_scores [bq, n_rows].  k > 0: one sorted
+// list per segment of tiles_per_block tiles into part_vals / part_idx
+// [bq, gridDim.x, k], and the top k into vals / idx [bq, k], merged by
+// the block that finishes last (counted on g_done[slot]).  vec4: the
+// query's rows are whole float4s.
 template <int QB, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 cosine_score_tile(const float* __restrict__ query,
                   const __grid_constant__ CUtensorMap store_map, int bq,
                   int n_rows, int dim, int count, int k, int tiles_per_block,
                   int stages, int vec4, float* __restrict__ out_scores,
-                  float* __restrict__ part_vals,
-                  int* __restrict__ part_idx) {
+                  float* __restrict__ part_vals, int* __restrict__ part_idx,
+                  float* __restrict__ vals, int* __restrict__ idx, int slot) {
   constexpr int DK = kDK<T>;
   constexpr int E = 16 / (int)sizeof(T);      // values of a 16-byte chunk
   extern __shared__ uint8_t smem_raw[];
@@ -387,65 +750,61 @@ cosine_score_tile(const float* __restrict__ query,
       part_vals[o] = lv[b * k + j];
       part_idx[o] = li[b * k + j];
     }
-  }
-}
-
-// One block per query: k rounds, each picking the best head among the
-// n_parts sorted partial lists.  Shared memory: one head per list.
-constexpr int kMergeThreads = 256;
-constexpr int kMergeWarps = kMergeThreads / 32;
-
-__global__ void __launch_bounds__(kMergeThreads)
-cosine_topk_merge(const float* __restrict__ part_vals,
-                  const int* __restrict__ part_idx, int n_parts, int k,
-                  float* __restrict__ vals, int* __restrict__ idx) {
-  extern __shared__ int heads[];
-  __shared__ float wv[kMergeWarps];
-  __shared__ int wi[kMergeWarps];
-  __shared__ int wt[kMergeWarps];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* pv = part_vals + (size_t)b * n_parts * k;
-  const int* pi = part_idx + (size_t)b * n_parts * k;
-  for (int t = threadIdx.x; t < n_parts; t += kMergeThreads) heads[t] = 0;
-  __syncthreads();
-  for (int j = 0; j < k; ++j) {
-    float v = -CUDART_INF_F;
-    int i = kNoIndex, tb = -1;
-    for (int t = threadIdx.x; t < n_parts; t += kMergeThreads) {
-      const int h = heads[t];
-      if (h < k) {
-        const float w = pv[(size_t)t * k + h];
-        const int wj = pi[(size_t)t * k + h];
-        if (better(w, wj, v, i)) { v = w; i = wj; tb = t; }
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float w = __shfl_xor_sync(0xffffffffu, v, o);
-      const int wj = __shfl_xor_sync(0xffffffffu, i, o);
-      const int wtb = __shfl_xor_sync(0xffffffffu, tb, o);
-      if (better(w, wj, v, i)) { v = w; i = wj; tb = wtb; }
-    }
-    if (lane == 0) { wv[warp] = v; wi[warp] = i; wt[warp] = tb; }
+    // the lists out before the count; the last block in merges them all
+    __threadfence();
     __syncthreads();
+    int* last = reinterpret_cast<int*>(ring);   // the ring is free now
     if (threadIdx.x == 0) {
-      for (int w = 1; w < kMergeWarps; ++w)
-        if (better(wv[w], wi[w], v, i)) { v = wv[w]; i = wi[w]; tb = wt[w]; }
-      vals[(size_t)b * k + j] = v;
-      idx[(size_t)b * k + j] = i;
-      if (tb >= 0) heads[tb] += 1;
+      const bool done = atomicAdd(&g_done[slot], 1u) == gridDim.x - 1;
+      if (done) atomicExch(&g_done[slot], 0u);
+      __threadfence();
+      *last = done;
     }
     __syncthreads();
+    if (*last)
+      merge_lists(part_vals, part_idx, bq, gridDim.x, k, vals, idx, ring,
+                  static_cast<int>(reinterpret_cast<uint8_t*>(li + QB * k) -
+                                   ring));
   }
 }
+
+// Tensor maps by (address, type, rows, columns, row stride): a map holds
+// only an address and a geometry, so a cached one is valid for any store
+// that has them.
+struct MapKey {
+  uintptr_t ptr;
+  int type, rows, dim, ld;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && type == o.type && rows == o.rows && dim == o.dim &&
+           ld == o.ld;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<uintptr_t>()(k.ptr);
+    for (int v : {k.type, k.rows, k.dim, k.ld})
+      h = h * 1000003u ^ static_cast<size_t>(v);
+    return h;
+  }
+};
+
+std::mutex map_mutex;
+std::unordered_map<MapKey, CUtensorMap, MapKeyHash> map_cache;
 
 // A 2-D map of the store's first max(count, 1) rows [rows][dim] of the
 // given type, rows `ld` elements apart, that loads [256 rows][128 bytes]
 // boxes, 128-byte swizzled, zero past the rows and past dim.
 bool encode_store_map(CUtensorMap* map, const void* store, int type,
                       int count, int dim, int ld) {
+  const MapKey key{reinterpret_cast<uintptr_t>(store), type,
+                   count > 0 ? count : 1, dim, ld};
+  std::lock_guard<std::mutex> lock(map_mutex);
+  auto it = map_cache.find(key);
+  if (it != map_cache.end()) {
+    *map = it->second;
+    return true;
+  }
   const PFN_cuTensorMapEncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const int elem = type == kF32 ? 4 : 2;
@@ -458,43 +817,64 @@ bool encode_store_map(CUtensorMap* map, const void* store, int type,
   const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
   const cuuint32_t box[2] = {(cuuint32_t)columns_a_stage(type), kTileRows};
   const cuuint32_t step[2] = {1, 1};
-  return fn(map, dt, 2, const_cast<void*>(store), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (fn(map, dt, 2, const_cast<void*>(store), dims, strides, box, step,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (map_cache.size() >= 4096) map_cache.clear();
+  map_cache.emplace(key, *map);
+  return true;
 }
 
+// The launch's arguments past the store's map.
+struct Args {
+  const float* query;
+  int bq, n_rows, dim, count, k, tiles_per_block, vec4;
+  float* out_scores;
+  float* part_vals;
+  int* part_idx;
+  float* vals;
+  int* idx;
+  int slot;
+};
+
 template <int QB, typename T>
-int launch_score(const float* query, const CUtensorMap& map, int bq,
-                 int n_rows, int dim, int count, int k, int tiles_per_block,
-                 int vec4, float* out_scores, float* part_vals,
-                 int* part_idx, cudaStream_t stream) {
-  const int n_tiles = (n_rows + kTileRows - 1) / kTileRows;
-  const int grid = (n_tiles + tiles_per_block - 1) / tiles_per_block;
-  const int stages = stages_for(QB, dim, kDK<T>, k);
+int launch_score(const CUtensorMap& map, const Args& a, cudaStream_t stream) {
+  const int n_tiles = (a.n_rows + kTileRows - 1) / kTileRows;
+  const int grid = (n_tiles + a.tiles_per_block - 1) / a.tiles_per_block;
+  const int stages = stages_for(QB, a.dim, kDK<T>, a.k);
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = kExtraBytes + (size_t)stages * kStageBytes +
-                      side_bytes(QB, dim, kDK<T>, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      cosine_score_tile<QB, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const size_t area =
+      (size_t)stages * kStageBytes + side_bytes(QB, a.dim, kDK<T>, a.k);
+  // the merge holds one query at least, and a lane keeps five heads
+  if (a.k > 0 && (grid > kMaxSegments ||
+                  merge_query_bytes(grid, a.k) + 256 > (int)area))
+    return (int)cudaErrorInvalidValue;
+  // the instantiation's limit, raised to the card's opt-in maximum once a
+  // device; each launch asks for its own size
+  static std::atomic<bool> raised[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  cosine_score_tile<QB, T><<<grid, kThreads, smem, stream>>>(
-      query, map, bq, n_rows, dim, count, k, tiles_per_block, stages, vec4,
-      out_scores, part_vals, part_idx);
+  if (dev >= 64 || !raised[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(cosine_score_tile<QB, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) raised[dev].store(true, std::memory_order_release);
+  }
+  cosine_score_tile<QB, T><<<grid, kThreads, kExtraBytes + area, stream>>>(
+      a.query, map, a.bq, a.n_rows, a.dim, a.count, a.k, a.tiles_per_block,
+      stages, a.vec4, a.out_scores, a.part_vals, a.part_idx, a.vals, a.idx,
+      a.slot);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_typed(const float* query, const CUtensorMap& map, int bq,
-                 int n_rows, int dim, int count, int k, int tiles_per_block,
-                 int vec4, float* out_scores, float* part_vals,
-                 int* part_idx, cudaStream_t st) {
-#define VG_COSINE_LAUNCH(QB)                                               \
-  if (bq <= QB)                                                            \
-    return launch_score<QB, T>(query, map, bq, n_rows, dim, count, k,      \
-                               tiles_per_block, vec4, out_scores,          \
-                               part_vals, part_idx, st);
+int launch_typed(const CUtensorMap& map, const Args& a, cudaStream_t st) {
+#define VG_COSINE_LAUNCH(QB) \
+  if (a.bq <= QB) return launch_score<QB, T>(map, a, st);
   VG_COSINE_LAUNCH(1)
   VG_COSINE_LAUNCH(2)
   VG_COSINE_LAUNCH(4)
@@ -511,6 +891,7 @@ extern "C" {
 
 int cosine_tile_rows() { return kTileRows; }
 int cosine_list_max_k() { return kMaxK; }
+int cosine_counter_slots() { return kCounterSlots; }
 
 // The most queries one launch takes at this width, list length and store
 // type (0 float32, 1 bfloat16, 2 float16): a power of two whose q^,
@@ -526,47 +907,34 @@ int cosine_queries_per_launch(int dim, int k, int type) {
 // Scores bq float32 queries against n_rows store rows of `type`, `ld`
 // elements apart, one block per segment of tiles_per_block tiles of
 // cosine_tile_rows() rows.  k == 0 writes the dense out_scores [bq,
-// n_rows]; 0 < k <= cosine_list_max_k() writes partials [bq, n_segments,
-// k] with n_segments = ceil(ceil(n_rows / tile rows) / tiles_per_block).
+// n_rows].  0 < k <= cosine_list_max_k() writes each segment's sorted
+// list into the scratch part_vals / part_idx [bq, n_segments, k], with
+// n_segments = ceil(ceil(n_rows / tile rows) / tiles_per_block) <= 160,
+// and the top k into vals / idx [bq, k]; `slot` (< cosine_counter_slots())
+// names the completion counter, which launches that may run at once must
+// not share: the wrapper keeps one a stream.
 int cosine_score_tile_launch(const float* query, const void* store, int type,
                              int ld, int bq, int n_rows, int dim, int count,
                              int k, int tiles_per_block, float* out_scores,
-                             float* part_vals, int* part_idx, void* stream) {
+                             float* part_vals, int* part_idx, float* vals,
+                             int* idx, int slot, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int elem = type == kF32 ? 4 : 2;
   if (type < kF32 || type > kF16 || dim < 1 || ld < dim ||
       ((long long)ld * elem) % 16 || (uintptr_t)store % 16 || k < 0 ||
       k > kMaxK || bq < 1 || bq > cosine_queries_per_launch(dim, k, type) ||
-      tiles_per_block < 1 || count < 0 || count > n_rows)
+      tiles_per_block < 1 || count < 0 || count > n_rows || slot < 0 ||
+      slot >= kCounterSlots)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   if (!encode_store_map(&map, store, type, count, dim, ld))
     return (int)cudaErrorNotSupported;
-  const int vec4 = dim % 4 == 0 && (uintptr_t)query % 16 == 0;
-  if (type == kBF16)
-    return launch_typed<__nv_bfloat16>(query, map, bq, n_rows, dim, count,
-                                       k, tiles_per_block, vec4, out_scores,
-                                       part_vals, part_idx, st);
-  if (type == kF16)
-    return launch_typed<__half>(query, map, bq, n_rows, dim, count, k,
-                                tiles_per_block, vec4, out_scores, part_vals,
-                                part_idx, st);
-  return launch_typed<float>(query, map, bq, n_rows, dim, count, k,
-                             tiles_per_block, vec4, out_scores, part_vals,
-                             part_idx, st);
-}
-
-int cosine_topk_merge_launch(const float* part_vals, const int* part_idx,
-                             int bq, int n_parts, int k, float* vals,
-                             int* idx, void* stream) {
-  const size_t smem = (size_t)n_parts * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      cosine_topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cosine_topk_merge<<<bq, kMergeThreads, smem, (cudaStream_t)stream>>>(
-      part_vals, part_idx, n_parts, k, vals, idx);
-  return (int)cudaGetLastError();
+  const Args a{query, bq, n_rows, dim, count, k, tiles_per_block,
+               dim % 4 == 0 && (uintptr_t)query % 16 == 0, out_scores,
+               part_vals, part_idx, vals, idx, slot};
+  if (type == kBF16) return launch_typed<__nv_bfloat16>(map, a, st);
+  if (type == kF16) return launch_typed<__half>(map, a, st);
+  return launch_typed<float>(map, a, st);
 }
 
 }  // extern "C"

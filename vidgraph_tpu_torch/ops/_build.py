@@ -53,12 +53,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64 = ctypes.c_int64
     lib.cosine_score_tile_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, p,
-                                             p, p, p]
+                                             p, p, p, p, i, p]
     lib.cosine_score_tile_launch.restype = i
-    lib.cosine_topk_merge_launch.argtypes = [p, p, i, i, i, p, p, p]
-    lib.cosine_topk_merge_launch.restype = i
     lib.cosine_tile_rows.restype = i
     lib.cosine_list_max_k.restype = i
+    lib.cosine_counter_slots.restype = i
+    lib.cosine_select_launch.argtypes = [p, i, i, i, p, p, p, i, p]
+    lib.cosine_select_launch.restype = i
+    lib.cosine_select_sort_cap.restype = i
     lib.cosine_queries_per_launch.argtypes = [i, i, i]
     lib.cosine_queries_per_launch.restype = i
     lib.flash_attn_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]

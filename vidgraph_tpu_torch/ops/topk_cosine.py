@@ -4,21 +4,24 @@ Counterpart of ``vidgraph_tpu/ops/topk_cosine.py``.  The TPU kernel there,
 ``_score_kernel`` (``pallas_call`` in ``_pallas_scores``), with the mask
 and the two-stage ``lax.top_k`` that ``_fused_cosine_topk_count`` and
 ``_masked_topk`` put around it, becomes the CUDA C++ kernels of
-``csrc/topk_cosine.cu``:
+``csrc/topk_cosine.cu`` and ``csrc/topk_select.cu``:
 
 * ``cosine_score_tile`` normalises the queries (``q * rsqrt(sum q^2 +
   1e-12)``) and streams the store once, one block per SM walking a segment
   of 256-row tiles through a ring of stages filled by TMA, with the scores
   register-tiled as an SGEMM (2 rows x the batch a thread).  Rows at or
   past ``count`` score -1e30 and are never read.  It writes either the
-  dense scores or, for k up to ``LIST_K``, each segment's top-k partials;
-* ``cosine_topk_merge`` merges the partials into ``(values [B,k] f32,
-  indices [B,k] int32)``, score descending, ties to the lower row index
-  as ``lax.top_k`` breaks them.
-
-Above ``LIST_K`` a top-k takes the dense scores from the kernel and
-selects with a stable descending sort (``lax.top_k``'s order), as the JAX
-package leaves its top-k to ``lax.top_k`` outside the Pallas kernel.
+  dense scores or, for k up to ``LIST_K``, the top-k ``(values [B,k] f32,
+  indices [B,k] int32)``, score descending, ties to the lower row index as
+  ``lax.top_k`` breaks them: each block keeps its segment's sorted list,
+  writes it to scratch, and the block that finishes last merges every
+  list, so a search is one launch;
+* ``cosine_select`` takes the top-k of the dense scores for k above
+  ``LIST_K``: a threshold from each thread's best entry (or a radix
+  select), the entries at or above it gathered, a bitonic sort of those.
+  It is bit-equal to a stable descending sort's first k (``select_ref``,
+  ``lax.top_k``'s order), as the JAX package leaves that top-k to
+  ``lax.top_k`` outside the Pallas kernel.
 
 The store is float32, bfloat16 or float16 (``STORE_TYPES``), read in its
 own type and upcast to float32 in the kernel, as ``_score_kernel`` upcasts
@@ -40,10 +43,16 @@ launches and ``REF_CALLS`` the wrapper's calls of the plain version, so a
 run can show which one served it.
 
 Query batches beyond what one launch takes (32 at d <= 512, fewer above,
-``cosine_queries_per_launch``) are split into launches.
+``cosine_queries_per_launch``) are split into launches.  The top-k
+launches of a stream count their blocks on one completion counter of the
+library (``_counter_slot``), which each launch leaves at zero: launches
+that may run at once must be on different streams.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -58,8 +67,8 @@ STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # dense scores one selection above LIST_K holds at once
 SELECT_BYTES = 1 << 28
 
-# launches of cosine_score_tile by mode, and of cosine_topk_merge
-LAUNCHES: Dict[str, int] = {"score_topk": 0, "score_dense": 0, "merge": 0}
+# launches of cosine_score_tile by mode, and of cosine_select
+LAUNCHES: Dict[str, int] = {"score_topk": 0, "score_dense": 0, "select": 0}
 REF_CALLS = 0
 
 
@@ -97,9 +106,20 @@ def cosine_topk_ref(query: torch.Tensor, store: torch.Tensor, k: int,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the top-k: a stable descending sort, so equal
     scores keep ascending row order."""
-    scores = cosine_scores_ref(query, store, count)
-    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+    return select_ref(cosine_scores_ref(query, store, count), k)
+
+
+def select_ref(scores: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``select_topk``: the first k of each row's stable
+    descending sort, ``(values [B,k] f32, indices [B,k] int32)``, in
+    ``lax.top_k``'s order: IEEE total order (+0.0 above -0.0, which
+    ``torch.sort`` takes as equal), so the sort is of each score's
+    order-preserving int32 key."""
+    bits = scores.float().contiguous().view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    idx = torch.sort(keys, dim=1, descending=True, stable=True)[1][:, :k]
+    return scores.float().gather(1, idx).contiguous(), idx.to(torch.int32)
 
 
 # ---------------------------------------------------------------- public
@@ -190,6 +210,11 @@ def aligned_store(store: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return rows[:, :d], rows.shape[1]
 
 
+@functools.lru_cache(maxsize=1024)
+def _queries_per_launch(d: int, k: int, store_type: int) -> int:
+    return _build.library().cosine_queries_per_launch(d, k, store_type)
+
+
 def _check_kernel_inputs(query: torch.Tensor, store: torch.Tensor, k: int
                          ) -> Tuple[torch.Tensor, int, int]:
     """Raise on what the kernel does not take; return the store as it
@@ -200,12 +225,21 @@ def _check_kernel_inputs(query: torch.Tensor, store: torch.Tensor, k: int
         raise ValueError("query must be contiguous")
     store, ld = aligned_store(store)
     d = query.shape[1]
-    per_launch = _build.library().cosine_queries_per_launch(
-        d, k, STORE_TYPES[store.dtype])
+    per_launch = _queries_per_launch(d, k, STORE_TYPES[store.dtype])
     if per_launch < 1:
         raise ValueError(f"d={d}: one query's row leaves no room for the "
                          "kernel's ring of stages")
     return store, ld, per_launch
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_rows() -> int:
+    return _build.library().cosine_tile_rows()
 
 
 def segment_tiles(n: int, device: torch.device) -> int:
@@ -213,25 +247,58 @@ def segment_tiles(n: int, device: torch.device) -> int:
     persistent grid scores: the store's tiles spread over the card's SMs.
     A segment is ``segment_tiles * cosine_tile_rows()`` rows and gets one
     top-k partial list."""
-    n_tiles = -(-n // _build.library().cosine_tile_rows())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return -(-n_tiles // sms)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n_tiles = -(-n // _tile_rows())
+    return -(-n_tiles // _sm_count(index))
 
 
 def segment_rows(n: int, device: torch.device) -> int:
     """Store rows per top-k partial list (see ``segment_tiles``)."""
-    return segment_tiles(n, device) * _build.library().cosine_tile_rows()
+    return segment_tiles(n, device) * _tile_rows()
+
+
+_slots: Dict[Tuple[int, int], int] = {}
+_slots_lock = threading.Lock()
+
+
+def _counter_slot(device: int, stream: int) -> int:
+    """The completion counter of top-k launches on ``stream``: one slot of
+    the library's zero-initialised array a (device, stream)."""
+    slot = _slots.get((device, stream))
+    if slot is None:
+        with _slots_lock:
+            slot = _slots.setdefault((device, stream), len(_slots))
+        if slot >= _build.library().cosine_counter_slots():
+            raise RuntimeError(f"top-k launches on more than {slot} "
+                               "streams: no completion counter is left")
+    return slot
+
+
+def _on(device: torch.device):
+    """``device`` made current for a launch, where it is not already."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``, as the launches take it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _launch(query: torch.Tensor, store: torch.Tensor, ld: int, count: int,
-            k: int, tpb: int, out, part_vals, part_idx) -> None:
+            k: int, tpb: int, stream: int, out=None, parts=(None, None),
+            top=(None, None), slot: int = 0) -> None:
     """One ``cosine_score_tile`` launch over ``query`` (at most a launch's
-    queries), ``tpb`` tiles a block, on the current stream."""
+    queries), ``tpb`` tiles a block, on ``stream``: the dense scores into
+    ``out``, or the lists into ``parts`` and the top k into ``top``
+    (pointers)."""
     n, d = store.shape
     _build.check(_build.library().cosine_score_tile_launch(
         query.data_ptr(), store.data_ptr(), STORE_TYPES[store.dtype], ld,
-        query.shape[0], n, d, count, k, tpb, out, part_vals, part_idx,
-        torch.cuda.current_stream().cuda_stream), "cosine_score_tile")
+        query.shape[0], n, d, count, k, tpb, out, *parts, *top, slot,
+        stream), "cosine_score_tile")
 
 
 def _cuda_scores(query: torch.Tensor, store: torch.Tensor,
@@ -240,10 +307,11 @@ def _cuda_scores(query: torch.Tensor, store: torch.Tensor,
     b, n = query.shape[0], store.shape[0]
     out = torch.empty((b, n), dtype=torch.float32, device=query.device)
     tpb = segment_tiles(n, query.device)
-    with torch.cuda.device(query.device):
+    with _on(query.device):
+        stream = _stream(query.device)
         for s in range(0, b, per_launch):
             _launch(query[s:s + per_launch], store, ld, count, 0, tpb,
-                    out[s].data_ptr(), None, None)
+                    stream, out=out[s].data_ptr())
             LAUNCHES["score_dense"] += 1
     return out
 
@@ -258,11 +326,11 @@ def _cuda_topk(query: torch.Tensor, store: torch.Tensor, k: int,
         vals = torch.empty((query.shape[0], 0), device=query.device)
         idx = torch.empty((query.shape[0], 0), dtype=torch.int32,
                           device=query.device)
-    elif live <= LIST_K:
-        vals, idx = topk_merge(*topk_partials(query, store[:count], live,
-                                              count), live)
     else:
-        vals, idx = _select(query, store[:count], live)
+        if count < store.shape[0]:
+            store = store[:count]
+        vals, idx = (topk_lists(query, store, live, count, lists=False)
+                     if live <= LIST_K else _select(query, store, live))
     if live < k:
         b = query.shape[0]
         vals = torch.cat([vals, torch.full((b, k - live), NEG,
@@ -275,61 +343,103 @@ def _cuda_topk(query: torch.Tensor, store: torch.Tensor, k: int,
 
 def _select(query: torch.Tensor, store: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Above the lists: the kernel's dense scores, then ``lax.top_k``'s
-    order (descending, ties to the lower row) by a stable sort, a block
-    of queries at a time."""
+    """Above the lists: the kernel's dense scores, then ``select_topk``,
+    a block of queries at a time."""
     b, n = query.shape[0], store.shape[0]
     step = max(1, SELECT_BYTES // (4 * n))
-    vals, idx = [], []
+    vals = torch.empty((b, k), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, k), dtype=torch.int32, device=query.device)
     for s in range(0, b, step):
         scores = _cuda_scores(query[s:s + step], store, n)
-        v, i = torch.sort(scores, dim=1, descending=True, stable=True)
-        vals.append(v[:, :k])
-        idx.append(i[:, :k].to(torch.int32))
-        del scores, v, i
-    return torch.cat(vals).contiguous(), torch.cat(idx).contiguous()
+        _cuda_select(scores, k, vals[s:s + step], idx[s:s + step])
+        del scores
+    return vals, idx
 
 
-# The two stages of the kernel path of ``cosine_topk``, on CUDA tensors,
-# with their plain versions; exposed so that each kernel can be checked
-# and timed on its own.
-def topk_partials(query: torch.Tensor, store: torch.Tensor, k: int,
-                  count: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``cosine_score_tile`` in top-k mode: each segment's top k as
-    ``(part_vals [B,n_seg,k] f32, part_idx [B,n_seg,k] int32)``, a segment
-    being ``segment_rows(n, device)`` rows; k at most ``LIST_K``."""
+def select_topk(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_select``: the top k of each row of float32 ``scores
+    [B,n]``, ``(values [B,k] f32, indices [B,k] int32)``, score descending,
+    ties to the lower column; 1 <= k <= n."""
+    global REF_CALLS
+    if scores.dim() != 2 or scores.dtype != torch.float32:
+        raise ValueError(f"scores {tuple(scores.shape)} {scores.dtype}: the "
+                         "kernel takes float32 [B,n]")
+    b, n = scores.shape
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k}: a selection takes 1 <= k <= n={n}")
+    if scores.device.type == "cpu":
+        REF_CALLS += 1
+        return select_ref(scores, k)
+    vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
+    idx = torch.empty((b, k), dtype=torch.int32, device=scores.device)
+    if b:
+        _cuda_select(scores.contiguous(), k, vals, idx)
+    return vals, idx
+
+
+def _cuda_select(scores: torch.Tensor, k: int, vals: torch.Tensor,
+                 idx: torch.Tensor) -> None:
+    """One ``cosine_select`` launch over contiguous ``scores`` into the
+    contiguous rows ``vals`` / ``idx``; past the kernel's shared memory
+    (``cosine_select_sort_cap``) it sorts in a scratch of its own."""
+    b, n = scores.shape
+    lib = _build.library()
+    scratch, width = None, 0
+    if k > lib.cosine_select_sort_cap():
+        width = 1 << (k - 1).bit_length()
+        scratch = torch.empty((b, width), dtype=torch.int64,
+                              device=scores.device)
+    with _on(scores.device):
+        _build.check(lib.cosine_select_launch(
+            scores.data_ptr(), b, n, k, vals.data_ptr(), idx.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), width,
+            _stream(scores.device)), "cosine_select")
+        LAUNCHES["select"] += 1
+
+
+# The top-k launch, on CUDA tensors, with its lists where asked: they are
+# exposed so that the tile pass can be held to its plain version alone.
+def topk_lists(query: torch.Tensor, store: torch.Tensor, k: int, count: int,
+               lists: bool = True):
+    """``cosine_score_tile`` in top-k mode: ``(values [B,k] f32, indices
+    [B,k] int32)``, and where ``lists`` is set the launch's scratch, each
+    segment's top k as ``(part_vals [B,n_seg,k] f32, part_idx [B,n_seg,k]
+    int32)``, a segment being ``segment_rows(n, device)`` rows; k at most
+    ``LIST_K``.  One buffer holds all four; the views are made after the
+    launch, so that the card starts as soon as it can."""
     if not 0 < k <= LIST_K:
         raise ValueError(f"k={k}: the kernel keeps lists of 1..{LIST_K}")
     store, ld, per_launch = _check_kernel_inputs(query, store, k)
     b, n = query.shape[0], store.shape[0]
     dev = query.device
     tpb = segment_tiles(n, dev)
-    n_seg = -(-n // (tpb * _build.library().cosine_tile_rows()))
-    part_vals = torch.empty((b, n_seg, k), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, n_seg, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    n_seg = -(-n // (tpb * _tile_rows()))
+    top, part = b * k, b * n_seg * k            # words of each
+    buf = torch.empty(2 * (top + part), dtype=torch.float32, device=dev)
+    at = buf.data_ptr()
+    with _on(dev):
+        stream = _stream(dev)
+        slot = _counter_slot(dev.index, stream)
         for s in range(0, b, per_launch):
-            _launch(query[s:s + per_launch], store, ld, count, k, tpb, None,
-                    part_vals[s].data_ptr(), part_idx[s].data_ptr())
+            _launch(query[s:s + per_launch] if b > per_launch else query,
+                    store, ld, count, k, tpb, stream,
+                    parts=(at + 4 * (2 * top + s * n_seg * k),
+                           at + 4 * (2 * top + part + s * n_seg * k)),
+                    top=(at + 4 * s * k, at + 4 * (top + s * k)), slot=slot)
             LAUNCHES["score_topk"] += 1
-    return part_vals, part_idx
+    out = (buf[:top].view(b, k),
+           buf[top:2 * top].view(torch.int32).view(b, k))
+    if lists:
+        out += (buf[2 * top:2 * top + part].view(b, n_seg, k),
+                buf[2 * top + part:].view(torch.int32).view(b, n_seg, k))
+    return out
 
 
-def topk_merge(part_vals: torch.Tensor, part_idx: torch.Tensor,
-               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``cosine_topk_merge``: the partials' top k, ``(values [B,k] f32,
-    indices [B,k] int32)``."""
-    b, n_parts = part_vals.shape[:2]
-    dev = part_vals.device
-    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _build.check(_build.library().cosine_topk_merge_launch(
-            part_vals.data_ptr(), part_idx.data_ptr(), b, n_parts, k,
-            vals.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "cosine_topk_merge")
-        LAUNCHES["merge"] += 1
-    return vals, idx
+def topk_partials(query: torch.Tensor, store: torch.Tensor, k: int,
+                  count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lists of ``topk_lists``'s launch alone."""
+    return topk_lists(query, store, k, count)[2:]
 
 
 def topk_partials_ref(query: torch.Tensor, store: torch.Tensor, k: int,
@@ -355,8 +465,9 @@ def topk_partials_ref(query: torch.Tensor, store: torch.Tensor, k: int,
 
 def topk_merge_ref(part_vals: torch.Tensor, part_idx: torch.Tensor,
                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``topk_merge``.  The partials run tile by tile in
-    ascending rows, so a stable sort keeps ties in ascending row order."""
+    """Plain version of the merge that ``cosine_score_tile``'s last block
+    runs.  The partials run tile by tile in ascending rows, so a stable
+    sort keeps ties in ascending row order."""
     b = part_vals.shape[0]
     vals, order = torch.sort(part_vals.reshape(b, -1), dim=1,
                              descending=True, stable=True)

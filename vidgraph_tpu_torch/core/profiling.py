@@ -1,63 +1,152 @@
 """Profiling and timing on the card.
 
-Counterpart of ``vidgraph_tpu/core/profiling.py``: ``device_trace`` records
-a ``torch.profiler`` trace (CPU and CUDA activities) where the JAX package
-records a ``jax.profiler`` one, and ``span`` is the same wall-clock span,
-optionally annotated into the trace.  ``cuda_ms`` times a callable on the
-card with CUDA events: PyTorch returns before the card finishes, so a host
-clock without a synchronise would time the enqueue only.  ``graph_ms``
-times the device's work alone, replaying the calls from a CUDA graph.
+Counterpart of ``vidgraph_tpu/core/profiling.py``.
+
+* The port's tracer: ``span`` marks a stretch of the host's work (a layer
+  boundary: ``vlm.caption_batch``, ``captioner.decode_step``,
+  ``optim.update`` ...).  While ``enable``-d, each span closes into a
+  record of its name, its start and end in Unix-epoch nanoseconds (the
+  clock of ``torch.profiler``'s events, so that a device trace lines up
+  with the spans), its id, the id of the span open around it in the same
+  ``contextvars`` context, the id of the outermost span of its call
+  (shared across ``asyncio.to_thread``, which copies the context), its
+  thread, the thread's CPU nanoseconds inside it and the counts set on
+  it.  Records are kept in memory, at most ``CAPACITY`` of them;
+  ``drain`` hands them over, ``dropped`` counts those past the bound.
+  A span never synchronises the card: it times the host, and the device
+  time comes from a device trace on the same clock.  Disabled (the
+  default), a span is one flag test and a shared no-op object: no clock
+  reading, no allocation.
+* ``device_busy_us`` and ``profile_device`` read the card's busy time and
+  launches from ``torch.profiler`` events.
+* ``cuda_ms`` times a callable on the card with CUDA events: PyTorch
+  returns before the card finishes, so a host clock without a synchronise
+  would time the enqueue only.  ``graph_ms`` times the device's work
+  alone, replaying the calls from a CUDA graph.
 """
 from __future__ import annotations
 
-import contextlib
+import contextvars
+import itertools
 import statistics
+import threading
 import time
-from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, List
 
 import torch
 
-from .logger import get_logger
-from .metrics import MetricsTracker
+FIELDS = ("name", "start_ns", "end_ns", "span_id", "parent_id", "call_id",
+          "thread", "cpu_ns", "counts")
+CAPACITY = 200_000
 
-logger = get_logger("profiling")
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str = "profiles") -> Iterator[object]:
-    """Record a torch.profiler trace of the enclosed block; yields the
-    profiler (``key_averages()`` for tables) and writes a Chrome trace
-    under ``log_dir``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    out = Path(log_dir) / f"trace_{int(time.time() * 1e3)}.json"
-    prof.export_chrome_trace(str(out))
-    logger.info("Device trace written to %s (open with chrome://tracing "
-                "or Perfetto)", out)
+_on = False
+_records: List[tuple] = []
+_dropped = 0
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_current: contextvars.ContextVar = contextvars.ContextVar(
+    "vidgraph_span", default=None)
+# the clocks a span reads (module attributes, so that a test can count them)
+_wall_ns = time.time_ns
+_cpu_ns = time.thread_time_ns
 
 
-@contextlib.contextmanager
-def span(name: str, metrics: Optional[MetricsTracker] = None,
-         annotate_device: bool = False) -> Iterator[None]:
-    """Wall-clock span; optionally also a ``record_function`` range so the
-    region shows up inside device traces."""
-    ctx = contextlib.nullcontext()
-    if annotate_device:
-        ctx = torch.profiler.record_function(name)
-    t0 = time.perf_counter()
-    with ctx:
-        yield
-    dt = time.perf_counter() - t0
-    if metrics is not None:
-        metrics.record_timing(name, dt)
-    logger.debug("span %s: %.3fs", name, dt)
+def _null_enter() -> "_NullSpan":
+    return NULL_SPAN
+
+
+def _null_exit(exc_type, exc, tb) -> None:
+    return None
+
+
+class _NullSpan:
+    """What ``span`` returns while tracing is off: does nothing.  Its
+    ``__enter__`` and ``__exit__`` are static, so that a ``with`` binds no
+    method object to it (nothing allocated)."""
+
+    __slots__ = ()
+    __enter__ = staticmethod(_null_enter)
+    __exit__ = staticmethod(_null_exit)
+
+    def set(self, key: str, value) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("name", "counts", "span_id", "parent_id", "call_id",
+                 "_token", "_start", "_cpu")
+
+    def __init__(self, name: str, counts: Dict) -> None:
+        self.name = name
+        self.counts = counts
+
+    def set(self, key: str, value) -> None:
+        """Sets a count of the span, kept in its record."""
+        self.counts[key] = value
+
+    def __enter__(self) -> "_Span":
+        parent = _current.get()
+        self.span_id = next(_ids)
+        if parent is None:
+            self.parent_id, self.call_id = None, self.span_id
+        else:
+            self.parent_id, self.call_id = parent.span_id, parent.call_id
+        self._token = _current.set(self)
+        self._cpu = _cpu_ns()
+        self._start = _wall_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = _wall_ns()
+        cpu = _cpu_ns() - self._cpu
+        _current.reset(self._token)
+        record = (self.name, self._start, end, self.span_id, self.parent_id,
+                  self.call_id, threading.get_ident(), cpu, self.counts)
+        global _dropped
+        with _lock:
+            if len(_records) < CAPACITY:
+                _records.append(record)
+            else:
+                _dropped += 1
+
+
+def span(name: str, **counts):
+    """A span named ``name`` around a ``with`` block, with ``counts``
+    (more may be ``set`` on it before it closes)."""
+    if not _on:
+        return NULL_SPAN
+    return _Span(name, counts)
+
+
+def enable() -> None:
+    """Starts recording spans into an empty buffer (of ``CAPACITY``)."""
+    global _on, _records, _dropped
+    with _lock:
+        _records, _dropped = [], 0
+    _on = True
+
+
+def disable() -> None:
+    """Stops recording; the records kept stay until ``drain``."""
+    global _on
+    _on = False
+
+
+def drain() -> List[Dict]:
+    """The records kept since ``enable`` or the last ``drain``, in the
+    order their spans closed, as dicts of ``FIELDS``; the buffer empties."""
+    global _records
+    with _lock:
+        out, _records = _records, []
+    return [dict(zip(FIELDS, r)) for r in out]
+
+
+def dropped() -> int:
+    """Spans that closed while the buffer was full, since ``enable``."""
+    return _dropped
 
 
 def device_busy_us(events) -> float:

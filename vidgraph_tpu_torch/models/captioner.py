@@ -65,7 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..core import prng
+from ..core import prng, profiling
 from ..ops.flash_attention import flash_attention
 from ..parallel import comm
 from ..parallel.mesh import (MODEL_AXIS, active_group, active_mesh,
@@ -353,14 +353,16 @@ def forward(params: Dict, cfg: CaptionerConfig, vision_emb: torch.Tensor,
     training at a long sequence needs when the attention probabilities
     are materialised.  ``flash=True`` takes the CUDA kernels on the card,
     forward and backward, which keep one float32 per row instead."""
-    x = _embed_inputs(params, cfg, vision_emb, tokens)
-    for bp in params["blocks"]:
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(lambda bp_, x_: _block(bp_, cfg, x_, flash)[0],
-                           bp, x, use_reentrant=False)
-        else:
-            x = _block(bp, cfg, x, flash)[0]
-    return _head_logits(params, cfg, x[:, cfg.num_vision_tokens:])
+    with profiling.span("captioner.forward"):
+        x = _embed_inputs(params, cfg, vision_emb, tokens)
+        for bp in params["blocks"]:
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(
+                    lambda bp_, x_: _block(bp_, cfg, x_, flash)[0],
+                    bp, x, use_reentrant=False)
+            else:
+                x = _block(bp, cfg, x, flash)[0]
+        return _head_logits(params, cfg, x[:, cfg.num_vision_tokens:])
 
 
 # ---------------------------------------------------------------------------
@@ -432,30 +434,44 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
     # every rank of the "model" group leaves at the same step
     mesh = active_mesh()
     group = None if mesh is None else axis_group(mesh, MODEL_AXIS)
-    for i in range(max_new):
-        toks[:, i] = tok
-        done = done | (tok == EOS_ID)
-        if i == max_new - 1 or (i % _DONE_CHECK == _DONE_CHECK - 1
-                                and comm.same_on_all(bool(done.all()),
-                                                     group)):
-            break
-        # positions past max_len reuse the last embedding, as JAX's
-        # clamped gather does (generate does not check the budget)
-        pos = torch.clamp(start + i, max=cfg.max_len - 1)
-        x = (params["tok_emb"][tok] + params["pos_emb"][pos])[:, None] \
-            .float()
-        masked[..., decode_base + i] = False
-        for bp, (kc, vc) in zip(params["blocks"], caches):
-            x = _step_block(bp, cfg, x, kc, vc, decode_base + i, masked)
-        logits = _head_logits(params, cfg, x)[:, 0]     # [B, vocab]
-        if grammar_trans is not None:
-            allowed = grammar_trans[gstate] != 0
-            logits = logits.masked_fill(~allowed, -1e30)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(done, torch.full_like(nxt, EOS_ID), nxt)
-        if grammar_trans is not None:
-            gstate = grammar_trans[gstate, nxt]
-        tok = nxt
+    steps = checks = 0
+    with profiling.span("captioner.decode") as decode:
+        for i in range(max_new):
+            # a step's span: its enqueue, and the all-done check (the
+            # loop's one wait on the card) in a span of its own
+            with profiling.span("captioner.decode_step"):
+                toks[:, i] = tok
+                done = done | (tok == EOS_ID)
+                if i == max_new - 1:
+                    break
+                if i % _DONE_CHECK == _DONE_CHECK - 1:
+                    checks += 1
+                    with profiling.span("captioner.done_check"):
+                        stop = comm.same_on_all(bool(done.all()), group)
+                    if stop:
+                        break
+                # positions past max_len reuse the last embedding, as
+                # JAX's clamped gather does (generate does not check the
+                # budget)
+                pos = torch.clamp(start + i, max=cfg.max_len - 1)
+                x = (params["tok_emb"][tok]
+                     + params["pos_emb"][pos])[:, None].float()
+                masked[..., decode_base + i] = False
+                for bp, (kc, vc) in zip(params["blocks"], caches):
+                    x = _step_block(bp, cfg, x, kc, vc, decode_base + i,
+                                    masked)
+                logits = _head_logits(params, cfg, x)[:, 0]  # [B, vocab]
+                if grammar_trans is not None:
+                    allowed = grammar_trans[gstate] != 0
+                    logits = logits.masked_fill(~allowed, -1e30)
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                nxt = torch.where(done, torch.full_like(nxt, EOS_ID), nxt)
+                if grammar_trans is not None:
+                    gstate = grammar_trans[gstate, nxt]
+                tok = nxt
+                steps += 1
+        decode.set("steps", steps)
+        decode.set("done_checks", checks)
     return toks
 
 
@@ -507,26 +523,30 @@ def generate_from_tokens(params: Dict, cfg: CaptionerConfig,
     b, t_pad = tokens.shape
     nv = cfg.num_vision_tokens
     dev = tokens.device
-    prompt_len = torch.as_tensor(prompt_len, dtype=torch.int32,
-                                 device=dev).expand(b)
-    logits, caches = prefill_logits(params, cfg, tokens, max_new, flash)
-    last = torch.clamp(nv + prompt_len.long() - 1, min=0)
-    first_logits = logits[torch.arange(b, device=dev), last]   # [B, v]
-    gstate = None
-    if grammar_trans is not None:
-        grammar_start = torch.as_tensor(grammar_start, dtype=torch.long,
-                                        device=dev)
-        allowed0 = grammar_trans[grammar_start] != 0
-        first_logits = first_logits.masked_fill(~allowed0, -1e30)
-    first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
-    first_tok = torch.where(prompt_len > 0, first_tok,
-                            torch.full_like(first_tok, EOS_ID))
-    if grammar_trans is not None:
-        gstate = grammar_trans[grammar_start, first_tok.long()]
-    return _decode_loop(params, cfg, first_tok, caches,
-                        nv + prompt_len.long(), max_new,
-                        decode_base=nv + t_pad,
-                        grammar_trans=grammar_trans, gstate=gstate)
+    with profiling.span("captioner.generate") as gen:
+        gen.set("batch", b)
+        with profiling.span("captioner.prefill"):
+            prompt_len = torch.as_tensor(prompt_len, dtype=torch.int32,
+                                         device=dev).expand(b)
+            logits, caches = prefill_logits(params, cfg, tokens, max_new,
+                                            flash)
+            last = torch.clamp(nv + prompt_len.long() - 1, min=0)
+            first_logits = logits[torch.arange(b, device=dev), last]
+            gstate = None
+            if grammar_trans is not None:
+                grammar_start = torch.as_tensor(grammar_start,
+                                                dtype=torch.long, device=dev)
+                allowed0 = grammar_trans[grammar_start] != 0
+                first_logits = first_logits.masked_fill(~allowed0, -1e30)
+            first_tok = torch.argmax(first_logits, dim=-1).to(torch.int32)
+            first_tok = torch.where(prompt_len > 0, first_tok,
+                                    torch.full_like(first_tok, EOS_ID))
+            if grammar_trans is not None:
+                gstate = grammar_trans[grammar_start, first_tok.long()]
+        return _decode_loop(params, cfg, first_tok, caches,
+                            nv + prompt_len.long(), max_new,
+                            decode_base=nv + t_pad,
+                            grammar_trans=grammar_trans, gstate=gstate)
 
 
 def vision_prefill(params: Dict, cfg: CaptionerConfig,
@@ -554,8 +574,13 @@ def generate(params: Dict, cfg: CaptionerConfig, vision_emb: torch.Tensor,
     for the prefill on the card."""
     b = vision_emb.shape[0]
     t0 = cfg.num_vision_tokens + 1
-    logits, caches = vision_prefill(params, cfg, vision_emb, max_new, flash)
-    first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    start = torch.full((b,), t0, dtype=torch.long, device=vision_emb.device)
-    return _decode_loop(params, cfg, first_tok, caches, start, max_new,
-                        decode_base=t0)
+    with profiling.span("captioner.generate") as gen:
+        gen.set("batch", b)
+        with profiling.span("captioner.prefill"):
+            logits, caches = vision_prefill(params, cfg, vision_emb, max_new,
+                                            flash)
+            first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            start = torch.full((b,), t0, dtype=torch.long,
+                               device=vision_emb.device)
+        return _decode_loop(params, cfg, first_tok, caches, start, max_new,
+                            decode_base=t0)

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import profiling
 from ..parallel import comm
 from ..parallel import tensor_parallel as tp
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
@@ -258,15 +259,20 @@ class AdamW:
     def update(self) -> None:
         """One update from the leaves' ``.grad`` (a leaf without one gets
         a zero gradient, as every leaf of a JAX gradient tree has one)."""
-        for p in self.leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.max_norm is not None:
-            clip_by_global_norm([p.grad for p in self.leaves], self.max_norm)
-        for group in self.opt.param_groups:
-            group["lr"] = self._lr(self.count)
-        self.opt.step()
-        self.count += 1
+        with profiling.span("optim.update") as sp:
+            sp.set("leaves", len(self.leaves))
+            for p in self.leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.max_norm is not None:
+                with profiling.span("optim.clip"):
+                    clip_by_global_norm([p.grad for p in self.leaves],
+                                        self.max_norm)
+            with profiling.span("optim.adamw"):
+                for group in self.opt.param_groups:
+                    group["lr"] = self._lr(self.count)
+                self.opt.step()
+            self.count += 1
 
     def state_tree(self) -> Dict[str, Any]:
         """The optimiser's state as a tree for ``checkpoint.save_params``:

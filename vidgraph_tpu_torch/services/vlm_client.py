@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.logger import get_logger
 
 logger = get_logger("vlm_client")
@@ -143,13 +144,15 @@ class TPUVLMClient(VLMClient):
         self._preproc_logged = False
 
     async def caption(self, frames, system_prompt="", user_prompt="") -> str:
-        return (await asyncio.to_thread(self.caption_batch_sync,
-                                        [list(frames)]))[0]
+        with profiling.span("vlm.caption"):
+            return (await asyncio.to_thread(self.caption_batch_sync,
+                                            [list(frames)]))[0]
 
     async def caption_batch(self, chunks, system_prompt="",
                             user_prompt="") -> List[str]:
-        return await asyncio.to_thread(
-            self.caption_batch_sync, [list(c) for c in chunks])
+        with profiling.span("vlm.caption"):
+            return await asyncio.to_thread(
+                self.caption_batch_sync, [list(c) for c in chunks])
 
     def _chunk_prefix(self, emb: torch.Tensor) -> torch.Tensor:
         """[n_frames, d] frame embeddings -> [nv, d] vision prefix: the
@@ -226,12 +229,22 @@ class TPUVLMClient(VLMClient):
         from ..models.captioner import generate
         from ..parallel.serving import maybe_mesh
 
-        emb = self.embed_frames(self.host_frames(chunks))
-        vis = self.vision_prefixes(chunks, emb)
-        with maybe_mesh(self._mesh):
-            toks = generate(self._serve_params, self.cap_cfg, vis,
-                            max_new=self.max_new).cpu().numpy()
-        return [tokenizer.decode(toks[i]) for i in range(len(chunks))]
+        with profiling.span("vlm.caption_batch") as sp:
+            sp.set("chunks", len(chunks))
+            with profiling.span("vlm.host_frames"):
+                stack = self.host_frames(chunks)
+            sp.set("frames", len(stack))
+            with profiling.span("vlm.embed_frames"):
+                emb = self.embed_frames(stack)
+            with profiling.span("vlm.vision_prefixes"):
+                vis = self.vision_prefixes(chunks, emb)
+            with maybe_mesh(self._mesh):
+                toks = generate(self._serve_params, self.cap_cfg, vis,
+                                max_new=self.max_new)
+            with profiling.span("vlm.tokens_to_host"):
+                toks = toks.cpu().numpy()
+                return [tokenizer.decode(toks[i])
+                        for i in range(len(chunks))]
 
 
 class HttpVLMClient(VLMClient):

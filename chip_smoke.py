@@ -376,8 +376,19 @@ Run from the root of a checkout.  Phases, each failing the run on error:
    slab), each timed beside its bound, its plain version and the library
    call (SDPA, cuBLAS bf16).
 
-``--phases 14,15,16,17,18,19,20,21,22,23,24,25,26`` runs only the named
-phases of 14-26 (with the build): a partial run prints no kernels record and no
+27. decode attention: kernel D on the paths that reach it, each between
+   a reset and a read of the counts: ``generate`` of the ``large()``
+   captioner at B 1 (the ingest cell's decode) and
+   ``generate_from_tokens`` of the chat LM at B 1 after a 4,000-token
+   prompt, both under the profiling spans (launches and the decode
+   span's ``attn_kernel_calls`` both layers x steps, no plain call).
+   Then the kernel against its plain version at ``large()`` B 1 x 16 x
+   265 x 128 and ``chat()`` B 1 x 8 x 4,096 x 64 (bf16, ragged mask;
+   the cache writes bit-equal, ``o`` within the dtype's tolerance), timed
+   beside the plain chain, SDPA at q-length 1 and its bound.
+
+``--phases 14,15,16,17,18,19,20,21,22,23,24,25,26,27`` runs only the
+named phases of 14-27 (with the build): a partial run prints no kernels record and no
 ``ok`` line.
 
 The last three lines: the kernels' JSON record (``seconds`` last: the
@@ -5257,9 +5268,139 @@ def phase_attention_domains(seed: int, card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 27
+DECODE_NEW = 48
+# (name, B, local heads, hd, cache slots, live keys): the large()
+# captioner's step at B 1 over every slot (the ingest cell) and the chat
+# LM's at B 1 over 4,096 positions
+DECODE_CASES = (("large_b1_h16_s265_hd128", 1, 16, 128, 265, 265),
+                ("chat_b1_h8_s4096_hd64", 1, 8, 64, 4096, 4096))
+
+
+def decode_case(da, fa, b, h, hd, max_t, live, seed) -> dict:
+    """Kernel D against ``decode_attention_ref`` on card tensors (bf16, the
+    decode loop's ragged mask): the cache writes bit-equal, ``o`` within
+    the dtype's tolerance (summation order only); then the device times
+    (CUDA-graph replay) of the kernel, the plain chain and SDPA at
+    q-length 1 with a boolean mask (the library yardstick, which the port
+    never calls), the host's microseconds a call of kernel and chain, and
+    the bound: the live K and V, q and o over 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+
+    dt, slot = torch.bfloat16, live - 1
+    g = torch.Generator(device=CUDA).manual_seed(seed)
+    qkv = torch.randn(b, 1, 3 * h * hd, generator=g, device=CUDA).to(dt)
+    q, k, v = (z.reshape(b, 1, h, hd) for z in qkv.split(h * hd, -1))
+    qkv_b = torch.randn(3 * h * hd, generator=g, device=CUDA).to(dt)
+    kc, vc = (torch.randn(b, h, max_t, hd, generator=g, device=CUDA)
+              for _ in range(2))
+    start = torch.randint(0, slot // 2 + 1, (b,), generator=g, device=CUDA)
+    key = torch.arange(max_t, device=CUDA)
+    masked = (key[None, :] >= start[:, None])[:, None, None, :].clone()
+    masked[..., slot // 2:slot + 1] = False
+    kc2, vc2 = kc.clone(), vc.clone()
+    want = da.decode_attention_ref(q, k, v, qkv_b, kc2, vc2, slot, masked,
+                                   dt)
+    got = da.decode_attention(q, k, v, qkv_b, kc, vc, slot, masked, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2), \
+        "decode_attention: the cache writes differ from the plain version's"
+    tol_abs, tol_rel = fa.tolerance(dt)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol_abs + tol_rel * want.float().abs()).all()), \
+        f"decode_attention: max |err| {float(err.max())}"
+    qf = (q.float() + qkv_b[:h * hd].float().view(1, 1, h, hd)) \
+        .transpose(1, 2)
+
+    def kernel():
+        return da.decode_attention(q, k, v, qkv_b, kc, vc, slot, masked, dt)
+
+    def plain():
+        return da.decode_attention_ref(q, k, v, qkv_b, kc2, vc2, slot,
+                                       masked, dt)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qf, kc, vc, attn_mask=~masked)
+    row = {"route": list(da.plan(b * h, live, hd)),
+           "max_abs_err": float(err.max()),
+           "kernel_ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+           "library_ms": graph_ms(sdpa),
+           "kernel_host_us": host_us(kernel), "plain_host_us": host_us(plain),
+           **bound((2 * live * hd * 4 + 2 * hd * 2) * b * h, 4.0 * b * h
+                   * live * hd, F32_FLOPS)}
+    del kc, vc, kc2, vc2
+    return row
+
+
+def phase_decode_attention(seed: int, card: str) -> dict:
+    """Kernel D on the decode paths, then at the decode's shapes.  Each
+    path between a reset and a read of the counts: ``generate`` of the
+    ``large()`` captioner at B 1 (the ingest cell's decode) and
+    ``generate_from_tokens`` of the chat LM at B 1 over a 4,000-token
+    prompt, each under the profiling spans: the kernel's launches and the
+    ``captioner.decode`` span's ``attn_kernel_calls`` both layers x
+    steps, the plain version never called.  Then ``DECODE_CASES`` through
+    ``decode_case``."""
+    from vidgraph_tpu_torch.core import profiling
+    from vidgraph_tpu_torch.models import captioner as cap
+    from vidgraph_tpu_torch.ops import decode_attention as da
+    from vidgraph_tpu_torch.ops import flash_attention as fa
+
+    paths = {}
+    for name, cfg in (("large_b1", cap.CaptionerConfig.large()),
+                      ("chat_b1", cap.CaptionerConfig.chat())):
+        params = cap.serving_params(cap.init_params(
+            cfg, seed, param_dtype=torch.bfloat16, device=CUDA), cfg)
+        g = torch.Generator(device=CUDA).manual_seed(seed + 27)
+        if name == "large_b1":
+            vis = torch.randn(1, cfg.num_vision_tokens, cfg.vision_dim,
+                              generator=g, device=CUDA)
+
+            def decode():
+                return cap.generate(params, cfg, vis, max_new=DECODE_NEW)
+        else:
+            t = 4000
+            tokens = torch.randint(0, 256, (1, t), generator=g, device=CUDA,
+                                   dtype=torch.int32)
+            lens = torch.tensor([t], device=CUDA)
+
+            def decode():
+                return cap.generate_from_tokens(params, cfg, tokens, lens,
+                                                max_new=DECODE_NEW)
+        da.LAUNCHES["decode_attention"], da.REF_CALLS = 0, 0
+        profiling.enable()
+        try:
+            toks = decode()
+            torch.cuda.synchronize()
+            (span,) = [r for r in profiling.drain()
+                       if r["name"] == "captioner.decode"]
+        finally:
+            profiling.disable()
+        steps = cap.decode_steps(toks, DECODE_NEW)
+        launches = da.LAUNCHES["decode_attention"]
+        assert launches == span["counts"]["attn_kernel_calls"] \
+            == cfg.layers * steps and da.REF_CALLS == 0, \
+            (name, launches, span["counts"], cfg.layers, steps)
+        paths[name] = {"launches": launches, "layers": cfg.layers,
+                       "steps": steps, "plain_calls": da.REF_CALLS}
+        del params
+        torch.cuda.empty_cache()
+    rows = {name: decode_case(da, fa, b, h, hd, max_t, live, seed + i)
+            for i, (name, b, h, hd, max_t, live) in enumerate(DECODE_CASES)}
+    torch.cuda.empty_cache()
+    log(f"phase 27: kernel D on the decode paths (launches = layers x "
+        f"steps, no plain call): {json.dumps(paths)}; against the plain "
+        f"version (caches bit-equal) and timed on {card} (ms, device time "
+        f"from CUDA-graph replay; host_us a call enqueued): "
+        f"{json.dumps(rows)}")
+    return {"paths": paths, "rows": rows}
+
+
 def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                   quant, bwd, training, streams, tooling, mesh,
-                  leader, domains, attn) -> dict:
+                  leader, domains, attn, decode) -> dict:
     """The ``kernels`` record: every kernel of the port, its launches on
     the main paths, its error against its plain version, its times and
     its bound at the shape it was timed at."""
@@ -5332,6 +5473,7 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
                       if "bwd_max_abs_err" in r)
     srow = attn["short"]["b5_h12_n257_hd64_bf16"]
     q8wide = attn["q8"]["K2048_N8192_M200"]
+    drow = decode["rows"]["large_b1_h16_s265_hd128"]
 
     def stage(name):
         return {key: grow["stages"][name][key]
@@ -5573,6 +5715,23 @@ def kernel_record(kern, main_path, flash, chat, pre, short, vision, q8k,
          "library_ms": None, **brow["bound"]["convert"],
          "timed": bwd_timed + "; dq = bf16(accumulator / sqrt(hd))"},
         *general,
+        {"name": "decode_attention", "route": "cuda",
+         "source": "vidgraph_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "vidgraph_tpu/models/captioner.py:326-339 (no TPU "
+                     "kernel: XLA fuses the cache update and the einsums)",
+         "launches": sum(p["launches"] for p in decode["paths"].values()),
+         "path_launches": decode["paths"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in decode["rows"].values()),
+         **{key: drow[key] for key in ("route", "kernel_host_us",
+                                       "plain_host_us", "bound_ms",
+                                       "bound_by")},
+         "ms": drow["kernel_ms"], "plain_ms": drow["plain_ms"],
+         "library_ms": drow["library_ms"], "library": "SDPA, q-length 1",
+         "chat_b1_4096": decode["rows"]["chat_b1_h8_s4096_hd64"],
+         "timed": "large() B 1 x 16 heads x 265 live keys x 128, bf16 "
+                  "(device time, CUDA graph); chat_b1_4096: B 1 x 8 heads "
+                  "x 4,096 x 64"},
     ]}
 
 
@@ -5582,7 +5741,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="",
-                    help="development: run only these of phases 14-26 "
+                    help="development: run only these of phases 14-27 "
                          "(prints no kernels record and no ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5624,9 +5783,10 @@ def main() -> int:
             23: lambda: phase_leader(tc, args.seed, card),
             24: lambda: phase_seeded(args.seed, card),
             25: lambda: phase_domains(tc, args.seed, card),
-            26: lambda: phase_attention_domains(args.seed, card)}
+            26: lambda: phase_attention_domains(args.seed, card),
+            27: lambda: phase_decode_attention(args.seed, card)}
     if only is not None and not only <= set(late):
-        ap.error("--phases takes 14 to 26")
+        ap.error("--phases takes 14 to 27")
     if only is not None:
         # a partial run, for development: no kernels record, no ok line
         for number in sorted(only):
@@ -5670,10 +5830,12 @@ def main() -> int:
     log(f"phases 1-25 done at {time.perf_counter() - t0:.1f} s")
     attn = late[26]()
     log(f"phases 1-26 done at {time.perf_counter() - t0:.1f} s")
+    decode = late[27]()
+    log(f"phases 1-27 done at {time.perf_counter() - t0:.1f} s")
     assert "jax" not in sys.modules, "the port's run imported jax"
     record = kernel_record(kern, main_path, flash, chat, pre, short, vision,
                            q8k, quant, bwd, training, streams, tooling,
-                           mesh, leader, domains, attn)
+                           mesh, leader, domains, attn, decode)
     record.update({
         "topk_b16_k5_ms": kern["times"]["topk_b16_k5"],
         "retrieval_p50_ms": main_path["p50_ms"],
@@ -5689,6 +5851,7 @@ def main() -> int:
                      if k != "profile"},
         "mesh": mesh, "leader": leader, "seeded": seeded,
         "domains": domains, "attention_domains": attn,
+        "decode_attention": decode,
         "seconds": time.perf_counter() - t0})
     print(json.dumps(record))
     print(nvidia_smi())

@@ -4,7 +4,7 @@ CUDA card.
     python3 scripts/compare_torch_kernels.py --parent DIR [--train]
         [--int8-decode] [--rounds 2]
         [--jobs cosine,flash_fwd,short_attention,flash_bwd,q8,preprocess,
-                plans,general_attention]
+                plans,general_attention,decode_attention]
 
 ``DIR`` holds another commit of this repository (for example
 ``git archive <commit> | tar -x -C DIR``, in a directory ``.gitignore``
@@ -65,7 +65,17 @@ named by ``--jobs`` (the first four by default):
   from CUDA-graph replay, the plain versions and SDPA forward and
   backward), and ``general_short_row`` at ``ATTN_DOMAIN_SHORT`` (held to
   the plain version, then device times of the kernel, the plain version
-  and SDPA).
+  and SDPA);
+* ``decode_attention``: one decode step's attention at ``DECODE_SHAPES``
+  (``large()`` at B 1, 64 and 512 x 265 slots, ``base()`` at B 16,
+  ``chat()`` at B 1 x 4,096 and x 1,200), at the last and the middle slot: device
+  time (CUDA-graph replay) and the host's microseconds a call of the
+  eager chain that ``_step_block`` ran before ``ops/decode_attention.py``
+  (the qkv bias add and the twelve ops of the attention), SDPA at
+  q-length 1 with a boolean mask beside it, and the kernel (checked
+  first; its route, device time, CUDA-event median, host time) where the
+  tree has it; below the SM count of (row, head) pairs, the kernel's
+  device time on its single route and on its split route apart.
 
 ``--train`` also runs each tree's ``scripts/profile_torch_train_step.py``
 (instruct and mid-scale steps with ``--flash``) in the same order, and
@@ -406,12 +416,130 @@ def general_attention_job(smoke) -> dict:
     return rows
 
 
+# (name, B, h, hd, max_t): the decode steps of large() at B 1 (the ingest
+# cell), 64 and 512, base() at B 16 and chat() at B 1 over 4,096 and over
+# 1,200 positions (601 live keys at the middle slot: near where ``plan``
+# turns to the split route)
+DECODE_SHAPES = (("large_b1", 1, 16, 128, 265), ("base_b16", 16, 8, 64, 265),
+                 ("chat_b1", 1, 8, 64, 4096), ("chat_b1_1200", 1, 8, 64, 1200),
+                 ("large_b64", 64, 16, 128, 265),
+                 ("large_b512", 512, 16, 128, 265))
+
+
+def decode_routes(da, kernel, bh: int, live: int, hd: int) -> dict:
+    """Device time of ``kernel`` on each route where ``plan`` could take
+    either (fewer (row, head) pairs than SMs): the single route, one block
+    a pair, and the split that ``plan`` makes when it splits."""
+    from vidgraph_tpu_torch.core.profiling import graph_ms
+
+    plan, min_keys = da.plan, da.SPLIT_MIN_KEYS
+    try:
+        da.SPLIT_MIN_KEYS = 0
+        split = plan(bh, live, hd, da._sm_count(0))
+    finally:
+        da.SPLIT_MIN_KEYS = min_keys
+    out = {"split_route": list(split)}
+    for name, route in (("single", (1, live)), ("split", split)):
+        if route[0] == 1 and name == "split":
+            continue
+        da.plan = lambda *_: route
+        try:
+            out[name + "_device_ms"] = graph_ms(kernel)
+        finally:
+            da.plan = plan
+    return out
+
+
+def decode_attention_job(smoke) -> dict:
+    """The decode step's attention at ``DECODE_SHAPES``, every key up to
+    the last slot live, and at the middle slot (the average step): the
+    eager chain that the parent runs, the qkv bias add and twelve ops
+    (device time from CUDA-graph replay, host microseconds a call
+    enqueued), SDPA at q-length 1 with a boolean mask (float32, the
+    caches' type; the cache writes left out), and, where the tree has
+    ``ops/decode_attention.py``, the kernel, checked against the chain
+    first.  ``bound_ms``: the live K and
+    V, q and o over 3.35 TB/s."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from vidgraph_tpu_torch.core.profiling import cuda_ms, graph_ms
+    try:
+        from vidgraph_tpu_torch.ops import decode_attention as da
+    except ImportError:
+        da = None
+    dt = torch.bfloat16
+    rows = {}
+    for name, b, h, hd, max_t in DECODE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * max_t)
+        raw = torch.randn(b, 1, 3 * h * hd, generator=g,
+                          device="cuda").to(dt)
+        bias = torch.randn(3 * h * hd, generator=g, device="cuda").to(dt)
+        q_raw, k_raw, v_raw = (z.reshape(b, 1, h, hd)
+                               for z in raw.split(h * hd, -1))
+        qf = (raw + bias)[..., :h * hd].reshape(b, 1, h, hd).float() \
+            .transpose(1, 2)
+        kc, vc = (torch.randn(b, h, max_t, hd, generator=g, device="cuda")
+                  for _ in range(2))
+        for where, slot in (("last", max_t - 1), ("mid", max_t // 2)):
+            live = slot + 1
+            key = torch.arange(max_t, device="cuda")
+            masked = (key > slot)[None, None, None, :].expand(
+                b, 1, 1, max_t).contiguous()
+            seen = ~masked
+
+            def chain():
+                q, k, v = (z.reshape(b, 1, h, hd)
+                           for z in (raw + bias).split(h * hd, -1))
+                kc[:, :, slot] = k[:, 0]
+                vc[:, :, slot] = v[:, 0]
+                att = (q.float().transpose(1, 2) @ kc.transpose(2, 3)) \
+                    / math.sqrt(hd)
+                att = att.masked_fill(masked, -1e30)
+                att = torch.softmax(att, dim=-1).to(dt)
+                o = (att.float() @ vc).transpose(1, 2)
+                return o.reshape(b, 1, -1).to(dt)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qf, kc, vc,
+                                                      attn_mask=seen)
+
+            row = {"live": live,
+                   "bound_ms": (2 * live * hd * 4 + 2 * hd * 2) * b * h
+                   / 3.35e9,
+                   "plain_device_ms": graph_ms(chain),
+                   "plain_host_us": host_us(chain),
+                   "library_sdpa_device_ms": graph_ms(sdpa)}
+            if da is not None:
+                def kernel():
+                    return da.decode_attention(q_raw, k_raw, v_raw, bias,
+                                               kc, vc, slot, masked, dt)
+                want = chain()
+                got = kernel()
+                row["max_abs_err"] = float((got.float() - want.float())
+                                           .abs().max())
+                row["route"] = da.plan(b * h, live, hd,
+                                       da._sm_count(0))
+                row["kernel_device_ms"] = graph_ms(kernel)
+                row["kernel_ms"] = cuda_ms(kernel)
+                row["kernel_host_us"] = host_us(kernel)
+                if b * h < da._sm_count(0):
+                    row.update(decode_routes(da, kernel, b * h, live, hd))
+            rows[f"{name}_{where}"] = row
+        del kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
 JOBS = {"cosine": cosine_job, "flash_fwd": flash_fwd_job,
         "short_attention": lambda smoke: smoke.phase_short_attention(
             0, smoke.nvidia_smi()),
         "flash_bwd": flash_bwd_job, "q8": q8_job,
         "preprocess": preprocess_job, "plans": plans_job,
-        "general_attention": general_attention_job}
+        "general_attention": general_attention_job,
+        "decode_attention": decode_attention_job}
 DEFAULT_JOBS = ("cosine", "flash_fwd", "short_attention", "flash_bwd")
 
 

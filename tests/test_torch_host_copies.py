@@ -179,7 +179,8 @@ def test_listed_definitions_are_copies(rel):
 
 # modules of the port with no module of the same path in the JAX package
 NEW = {"convert.py", "core/prng.py", "ops/_build.py",
-       "ops/flash_attention.py", "cli/ranks.py", "parallel/comm.py", "parallel/dryrun.py",
+       "ops/flash_attention.py", "ops/decode_attention.py", "cli/ranks.py",
+       "parallel/comm.py", "parallel/dryrun.py",
        "parallel/launch.py", "parallel/leader.py",
        "parallel/tensor_parallel.py"}
 # modules rewritten for PyTorch (the kernels' wrappers and the models that

@@ -50,9 +50,15 @@ rounding:
   group.
 * The decode is bound by the host's kernel launches (eager PyTorch, one
   step at a time), so a step launches as few as it can: the layer norm is
-  ``F.layer_norm``, the decode mask is updated in place once a step, and
+  ``F.layer_norm``, the decode mask is updated in place once a step,
   ``serving_params`` casts the matrices and biases that every product
-  casts anyway to the compute dtype once, not once a step.
+  casts anyway to the compute dtype once, not once a step, and a block's
+  attention (the qkv bias add, cache writes, scores, mask, softmax, P.V)
+  is one call of ``ops/decode_attention.py``: one kernel on the card,
+  where the plain chain it replaces launched the bias add and twelve
+  ops.  The ``captioner.decode`` span counts those kernel calls
+  (``attn_kernel_calls``: the op's launches in the decode's thread
+  while it ran).
 """
 from __future__ import annotations
 
@@ -66,6 +72,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core import prng, profiling
+from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import thread_launches as attn_thread_launches
 from ..ops.flash_attention import flash_attention
 from ..parallel import comm
 from ..parallel.mesh import (MODEL_AXIS, active_group, active_mesh,
@@ -376,18 +384,18 @@ def _step_block(bp, cfg: CaptionerConfig, x, kcache, vcache,
     ``write_slot = decode_base + i`` whatever its prompt length.
     ``masked`` [B, 1, 1, maxT] bool is True at the keys a row must not
     see: all but its prompt (``key < prompt_end``) and the decode slots
-    ``[decode_base, write_slot]`` (``_decode_loop`` keeps it)."""
+    ``[decode_base, write_slot]`` (``_decode_loop`` keeps it).  The
+    attention, the qkv bias add and the cache writes included, is
+    ``ops/decode_attention.py``: one kernel on the card."""
     b, _, d = x.shape
     hd = d // cfg.heads
-    q, k, v = _qkv(bp, cfg, x)                        # [B, 1, h, hd]
-    kcache[:, :, write_slot] = k[:, 0]
-    vcache[:, :, write_slot] = v[:, 0]
-    att = (q.float().transpose(1, 2) @ kcache.transpose(2, 3)) \
-        / math.sqrt(hd)                               # [B, h, 1, maxT]
-    att = att.masked_fill(masked, -1e30)
-    att = torch.softmax(att, dim=-1).to(cfg.dtype)
-    o = (att.float() @ vcache).transpose(1, 2)       # [B, 1, h, hd]
-    o = o.reshape(b, 1, -1).to(cfg.dtype)
+    y = _ln(x, bp["ln1_scale"], bp["ln1_bias"]).to(cfg.dtype)
+    y = _column_input(y, bp["qkv_w"], 3 * d)
+    # ``_qkv``'s views of the product without its bias: the op adds it
+    q, k, v = (z.reshape(b, 1, -1, hd) for z in
+               wdot(y, bp["qkv_w"], cfg.dtype, cfg.qmode).chunk(3, dim=-1))
+    o = decode_attention(q, k, v, bp["qkv_b"], kcache, vcache, write_slot,
+                         masked, cfg.dtype)           # [B, 1, h * hd]
     x = x + _row_linear(o, bp["attn_o_w"], bp["attn_o_b"], cfg, d).float()
     return _mlp(bp, cfg, x)
 
@@ -435,6 +443,7 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
     mesh = active_mesh()
     group = None if mesh is None else axis_group(mesh, MODEL_AXIS)
     steps = checks = 0
+    kernel_calls = attn_thread_launches()
     with profiling.span("captioner.decode") as decode:
         for i in range(max_new):
             # a step's span: its enqueue, and the all-done check (the
@@ -472,6 +481,8 @@ def _decode_loop(params, cfg: CaptionerConfig, first_tok, caches,
                 steps += 1
         decode.set("steps", steps)
         decode.set("done_checks", checks)
+        decode.set("attn_kernel_calls",
+                   attn_thread_launches() - kernel_calls)
     return toks
 
 

@@ -93,6 +93,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.short_attention_launch.restype = i
     lib.q8_matmul_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.q8_matmul_launch.restype = i
+    lib.decode_attention_launch.argtypes = [p, p, p, i64, i64, i64, i64, i64,
+                                            i64, p, p, p, p, i64, p, i, i, i,
+                                            i, i, i, i, i, p, i, p]
+    lib.decode_attention_launch.restype = i
+    lib.decode_attention_counter_slots.restype = i
 
 
 def _compile(srcs, out: Path) -> None:
@@ -161,3 +166,27 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: cudaError_t {err}")
+
+
+class CounterSlots:
+    """The slots of one of the library's zero-initialised arrays of
+    completion counters (kernels whose grid's last block merges, leaving
+    its counter at zero): one slot a (device, stream), so that launches on
+    different streams never share a counter.  ``capacity`` names the
+    library's function that gives the array's slots."""
+
+    def __init__(self, what: str, capacity: str):
+        self._what, self._capacity = what, capacity
+        self._slots: dict = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, device: int, stream: int) -> int:
+        slot = self._slots.get((device, stream))
+        if slot is None:
+            with self._lock:
+                slot = self._slots.setdefault((device, stream),
+                                              len(self._slots))
+            if slot >= getattr(library(), self._capacity)():
+                raise RuntimeError(f"{self._what} on more than {slot} "
+                                   "streams: no completion counter is left")
+        return slot

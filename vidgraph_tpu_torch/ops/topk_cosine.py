@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -258,21 +257,8 @@ def segment_rows(n: int, device: torch.device) -> int:
     return segment_tiles(n, device) * _tile_rows()
 
 
-_slots: Dict[Tuple[int, int], int] = {}
-_slots_lock = threading.Lock()
-
-
-def _counter_slot(device: int, stream: int) -> int:
-    """The completion counter of top-k launches on ``stream``: one slot of
-    the library's zero-initialised array a (device, stream)."""
-    slot = _slots.get((device, stream))
-    if slot is None:
-        with _slots_lock:
-            slot = _slots.setdefault((device, stream), len(_slots))
-        if slot >= _build.library().cosine_counter_slots():
-            raise RuntimeError(f"top-k launches on more than {slot} "
-                               "streams: no completion counter is left")
-    return slot
+# the completion counter of top-k launches on a (device, stream)
+_counter_slot = _build.CounterSlots("top-k launches", "cosine_counter_slots")
 
 
 def _on(device: torch.device):
